@@ -1,15 +1,18 @@
 """deblurgs_tpu_torch — PyTorch/CUDA port of the DeblurGS framework.
 
-The forward render path of ``deblurgs_tpu`` (camera-motion blur synthesis
-over per-image SE(3) Bézier trajectories, rendered by a tile-binned
-Gaussian-splatting rasterizer) rebuilt on PyTorch, with hand-written CUDA
-kernels for the hot spots:
+The render path and the train step of ``deblurgs_tpu`` (camera-motion blur
+synthesis over per-image SE(3) Bézier trajectories, rendered by a
+tile-binned Gaussian-splatting rasterizer, trained jointly with the
+trajectories) rebuilt on PyTorch, with hand-written CUDA kernels for the
+hot spots:
 
-- ``ops/cuda_blend.py``: pair staging (expansion, tile cull, two-key sort)
-  and the segmented-broadcast kernel (counterpart of
-  ``deblurgs_tpu/ops/pallas_blend.py``);
-- ``ops/cuda_blend_mixed.py``: the front-to-back compositing kernel
-  (counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``).
+- ``ops/cuda_blend.py``: pair staging (expansion, tile cull, two-key sort),
+  the segmented-broadcast kernel K3 and the gradient reduce K4
+  (counterpart of ``deblurgs_tpu/ops/pallas_blend.py``);
+- ``ops/cuda_blend_mixed.py``: the front-to-back compositing kernel K1 and
+  its backward K2 (counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``);
+- ``train/step.py``: the train step (counterpart of
+  ``deblurgs_tpu/train/step.py``), gradients by autograd around K2 and K4.
 
 Kernels are compiled with ``nvcc`` from ``csrc/`` into ``build/`` on first
 use; importing this package needs neither CUDA nor a compiler. Entry points
@@ -19,9 +22,6 @@ in which case every kernel wrapper runs its plain PyTorch version.
 Matrix convention (same as the JAX package): row-vector transforms,
 ``p_view = p_hom @ view`` with ``view`` the transposed world-to-view matrix,
 ``full_proj = view @ proj``.
-
-This slice is forward-only: gradients through the compositor arrive with the
-training slice, so call the renderer under ``torch.no_grad()``.
 """
 
 __version__ = "0.1.0"

@@ -33,11 +33,12 @@ def bernstein_basis(t: torch.Tensor, order: int) -> torch.Tensor:
 
 
 def bezier_eval(control_points: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """control_points [..., order+1, d], t [f] -> [..., f, d]
-    (reference ``BezierModel.forward``, ``bezier.py:66-83``)."""
+    """control_points [..., order+1, d], t [..., f] -> [..., f, d]
+    (reference ``BezierModel.forward``, ``bezier.py:66-83``); leading axes
+    of ``t`` pair with those of ``control_points``."""
     order = control_points.shape[-2] - 1
     coeff = bernstein_basis(t, order)
-    return torch.einsum("fk,...kd->...fd", coeff, control_points)
+    return torch.einsum("...fk,...kd->...fd", coeff, control_points)
 
 
 def init_control_points(initial_points: torch.Tensor, order: int, noise: float,

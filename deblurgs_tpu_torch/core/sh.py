@@ -77,3 +77,13 @@ def sh_to_color(sh: torch.Tensor, means: torch.Tensor, campos: torch.Tensor,
     if use_sigmoid:
         return torch.sigmoid(rgb)
     return torch.clamp(rgb + 0.5, min=0.0)
+
+
+def rgb_to_sh(rgb: torch.Tensor, use_sigmoid: bool = False) -> torch.Tensor:
+    """DC init (reference ``sh_utils.py:114-115``)."""
+    return rgb / C0 if use_sigmoid else (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh: torch.Tensor, use_sigmoid: bool = False) -> torch.Tensor:
+    """Inverse of :func:`rgb_to_sh` (reference ``sh_utils.py:117-118``)."""
+    return sh * C0 if use_sigmoid else sh * C0 + 0.5

@@ -1,11 +1,19 @@
-"""Pair staging and the segmented-broadcast kernel (K3).
+"""Pair staging, the segmented-broadcast kernel (K3) and the gradient
+reduce (K4).
 
 Counterpart of ``deblurgs_tpu/ops/pallas_blend.py``: ``broadcast_fields``
-(K3, ``pallas_blend.py:179-233``), ``_tile_visible`` (``:236-275``) and
-``_sort_stage`` (``:278-369``). The TPU grid bookkeeping of that module
-(``prepare_mixed``'s step maps, lockstep step maps, parity-interleaved
-buffers, one-hot routing) has no counterpart: the compositing kernel walks
-each tile's pair range directly.
+(K3, ``pallas_blend.py:179-233``), ``_tile_visible`` (``:236-275``),
+``_sort_stage`` (``:278-369``), and ``_reduce_sorted`` (K4, ``:858-926``)
+with ``reduce_pair_grads`` (``:929-948``). The TPU grid bookkeeping of
+that module (``prepare_mixed``'s step maps, lockstep step maps,
+parity-interleaved buffers, one-hot routing) has no counterpart: the
+compositing kernels walk each tile's pair range directly.
+
+The JAX package reduces the pair gradients with ``jax.ops.segment_sum``
+unless ``DEBLURGS_REDUCE=window`` selects ``_reduce_sorted``. The port
+always takes K4: on the card the plain counterpart of ``segment_sum`` is
+an atomic ``index_add_``, whose summation order changes from run to run,
+and K4 makes a step's gradients bitwise the same on every run.
 
 Where parity with the JAX package is fragile:
 
@@ -253,3 +261,74 @@ def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
     depth) sort → per-tile ranges (``pallas_blend.py:278-369``)."""
     c = compact_table(cfg, means2d, conic, opacity, color, depth, rect, area, max_pairs)
     return sort_slots(cfg, broadcast_fields(c.ctable, c.gauss_c), c)
+
+
+# ---------------------------------------------------------------------------
+# K4: segmented reduce of the per-pair gradients
+# ---------------------------------------------------------------------------
+
+
+def reduce_sorted_ref(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version of K4: the segment sum of rows 0-9 of ``pair_grads``
+    [16, max_pairs] by compact rank ``s_gc`` (rank ``P`` is dropped), into
+    [P, 16] with columns 10-15 zero. Sums in float64."""
+    seg = torch.clamp(s_gc.to(torch.int64), max=P)
+    sums = torch.zeros((P + 1, 10), dtype=torch.float64, device=pair_grads.device)
+    sums.index_add_(0, seg, pair_grads[:10].T.to(torch.float64))
+    out = torch.zeros((P, NFIELD), dtype=pair_grads.dtype, device=pair_grads.device)
+    out[:, :10] = sums[:P].to(pair_grads.dtype)
+    return out
+
+
+def reduce_sorted(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch.Tensor:
+    """[16, max_pairs] per-slot gradients + [max_pairs] compact ranks (``P``
+    = no owner) → [P, 16] per-rank sums of rows 0-9 (columns 10-15 zero),
+    with no atomics: two calls give bitwise-equal sums.
+
+    A stable sort of the ranks gives each rank's slots as one run in slot
+    order; the kernel (``csrc/reduce_sorted.cu``) sums each run with one
+    warp. CPU tensors take :func:`reduce_sorted_ref`; CUDA tensors launch
+    the kernel or raise.
+    """
+    if pair_grads.device.type == "cpu":
+        return reduce_sorted_ref(pair_grads, s_gc, P)
+    dev = pair_grads.device
+    if dev.type != "cuda" or s_gc.device != dev:
+        raise ValueError(f"reduce_sorted: tensors must share one CUDA device "
+                         f"(got {dev} and {s_gc.device})")
+    if (pair_grads.dtype != torch.float32 or pair_grads.dim() != 2
+            or pair_grads.shape[0] != NFIELD):
+        raise ValueError(f"reduce_sorted: pair_grads must be [{NFIELD}, max_pairs] float32, "
+                         f"got {tuple(pair_grads.shape)} {pair_grads.dtype}")
+    max_pairs = pair_grads.shape[1]
+    if s_gc.shape != (max_pairs,):
+        raise ValueError(f"reduce_sorted: s_gc must be [{max_pairs}]")
+    if max_pairs >= 2 ** 31 or P >= 2 ** 31:
+        raise ValueError("reduce_sorted: the kernel indexes slots and ranks with int32")
+    pair_grads = pair_grads.contiguous()
+    key, perm = torch.sort(torch.clamp(s_gc, max=P).to(torch.int32), stable=True)
+    seg = torch.searchsorted(key, torch.arange(P + 1, dtype=torch.int32, device=dev),
+                             out_int32=True)
+    perm = perm.to(torch.int32)
+    out = torch.empty((P, NFIELD), dtype=torch.float32, device=dev)
+    load_library().launch(
+        "deblurgs_reduce_sorted", pair_grads.data_ptr(), max_pairs, perm.data_ptr(),
+        seg.data_ptr(), P, out.data_ptr(), stream_ptr(dev))
+    reduce_sorted.launches += 1
+    return out
+
+
+reduce_sorted.launches = 0
+
+
+def reduce_pair_grads(staged: Staged, pair_grads: torch.Tensor, P: int) -> torch.Tensor:
+    """Per-Gaussian sums [P, 16] of the per-slot gradients: K4 by compact
+    rank, then the compact sums scattered back to original rows through
+    ``staged.ids`` (``pallas_blend.py:941-947``; the ids are unique on the
+    first ``n_emit`` ranks, and the rest are dropped)."""
+    sums = reduce_sorted(pair_grads, staged.s_gc, P)
+    rank = torch.arange(P, device=sums.device)
+    ids_u = torch.where(rank < staged.n_emit, staged.ids, P)
+    out = torch.zeros((P + 1, NFIELD), dtype=sums.dtype, device=sums.device)
+    out[ids_u] = sums
+    return out[:P]

@@ -1,11 +1,10 @@
 """Tile-binned alpha compositing: configuration, tiling and ``blend_fused``.
 
-Counterpart of ``deblurgs_tpu/ops/tile_blend.py``. This slice ports the
-forward of the fused kernel path (``tile_blend.py:462-481``): staging (K3
-plus the sort) → compositing (K1) → ``image = C + T·bg`` and
-``depth = D + T·z_far``. Gradients through the compositor arrive with the
-training slice; until then :func:`blend_fused` refuses inputs that require
-grad.
+Counterpart of ``deblurgs_tpu/ops/tile_blend.py``'s fused kernel path
+(``tile_blend.py:432-497``). Forward: staging (K3 plus the sort) →
+compositing (K1) → ``image = C + T·bg`` and ``depth = D + T·z_far``.
+Backward: per-pair gradients (K2) → their reduce by compact rank (K4) →
+the scatter to original rows.
 """
 
 from __future__ import annotations
@@ -108,22 +107,64 @@ def _tiles_to_images(cfg: BlendConfig, tiled: torch.Tensor) -> torch.Tensor:
     return torch.stack([tiles_to_image(cfg, t) for t in per])
 
 
+def _images_to_tiles(cfg: BlendConfig, img: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_tiles_to_images` ([n_images, H, W, ...] or
+    [H, W, ...] -> [total_tiles, tile_px, ...])."""
+    if cfg.n_images == 1:
+        return image_to_tiles(cfg, img)
+    return torch.cat([image_to_tiles(cfg, i) for i in img])
+
+
+class _BlendFused(torch.autograd.Function):
+    """Counterpart of the JAX package's ``custom_vjp`` pair
+    ``_blend_fused_fwd`` / ``_blend_fused_bwd`` (``tile_blend.py:462-497``).
+
+    Residuals: the staged pair list, final_T and the pre-background C and D.
+    The backward runs K2 (per-slot gradients), K4 (their reduce by compact
+    rank) and the scatter to original rows. As in JAX, the cotangent of
+    final_T is dropped (``_dT``); n_contrib, num_pairs and max_per_tile are
+    not differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, cfg, means2d, conic, opacity, color, depth, rect, area, bg):
+        staged = cuda_blend.sort_stage(cfg, means2d, conic, opacity, color, depth,
+                                       rect, area, cfg.max_pairs)
+        C, D, T, n_con = cuda_blend_mixed.forward_mixed(cfg, staged)
+        image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
+        ctx.cfg = cfg
+        ctx.staged = staged
+        ctx.n_rows = means2d.shape[0]
+        ctx.save_for_backward(T, C, D, bg)
+        ctx.mark_non_differentiable(n_contrib, staged.total, staged.max_per_tile)
+        return image, depth_img, final_T, n_contrib, staged.total, staged.max_per_tile
+
+    @staticmethod
+    def backward(ctx, d_image, d_depth, _dT, _dn, _dnp, _dmpt):
+        cfg = ctx.cfg
+        T, C, D, bg = ctx.saved_tensors
+        if d_image is None:
+            d_image = torch.zeros_like(C)
+        else:
+            d_image = _images_to_tiles(cfg, d_image)
+        d_depth = torch.zeros_like(D) if d_depth is None else _images_to_tiles(cfg, d_depth)
+        pair_grads = cuda_blend_mixed.backward_mixed(cfg, ctx.staged, bg, T, d_image,
+                                                     d_depth, C, D)
+        sums = cuda_blend.reduce_pair_grads(ctx.staged, pair_grads, ctx.n_rows)
+        dbg = torch.einsum("tp,tpc->c", T, d_image)
+        return (None, sums[:, 0:2], sums[:, 2:5], sums[:, 5], sums[:, 6:9], sums[:, 9],
+                None, None, dbg)
+
+
 def blend_fused(cfg: BlendConfig, means2d, conic, opacity, color, depth,
                 rect, area, bg):
-    """Staging + compositing of all stacked views.
+    """Staging + compositing of all stacked views, differentiable in
+    means2d, conic, opacity, color, depth and bg.
 
     Returns (image, depth_img, final_T, n_contrib, num_pairs, max_per_tile)
-    as the JAX function does. Forward only: raises NotImplementedError when
-    a float input requires grad (run under ``torch.no_grad()``).
+    as the JAX function does; gradients flow from image and depth_img.
     """
-    if any(t.requires_grad for t in (means2d, conic, opacity, color, depth, bg)):
-        raise NotImplementedError(
-            "blend_fused is forward-only until the backward kernels are "
-            "ported; call it under torch.no_grad()")
-    staged = cuda_blend.sort_stage(cfg, means2d, conic, opacity, color, depth,
-                                   rect, area, cfg.max_pairs)
-    return compose(cfg, *cuda_blend_mixed.forward_mixed(cfg, staged), bg) + (
-        staged.total, staged.max_per_tile)
+    return _BlendFused.apply(cfg, means2d, conic, opacity, color, depth, rect, area, bg)
 
 
 def compose(cfg: BlendConfig, C, D, T, n_con, bg):

@@ -8,7 +8,8 @@ the JAX package's Pallas path, run in interpret mode as its own tests run it.
 - K1's plain version against ``forward_mixed`` on the same staged fields:
   C, D, final_T at atol 1e-5 / rtol 1e-4 (``tests/test_rasterizer.py``'s
   tolerance), ``n_con`` exactly;
-- the hostile scenes of ``tests/test_pallas_blend.py``, forward only.
+- the hostile scenes of ``tests/test_pallas_blend.py`` (their gradients are
+  in ``tests/test_torch_backward.py``).
 
 The CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
@@ -153,7 +154,7 @@ def test_composite_plain_matches_jax_kernel(need_n_contrib, fast):
 
 
 # ---------------------------------------------------------------------------
-# hostile scenes (tests/test_pallas_blend.py), forward only
+# hostile scenes (tests/test_pallas_blend.py)
 # ---------------------------------------------------------------------------
 
 
@@ -291,7 +292,7 @@ def test_fast_mode_within_eps_bound(scene):
 
 
 # ---------------------------------------------------------------------------
-# configuration, dispatch and the forward-only contract
+# configuration, dispatch and the gradient contract
 # ---------------------------------------------------------------------------
 
 
@@ -321,11 +322,17 @@ def test_unported_paths_raise(kw):
 
 
 def test_blend_refuses_gradients():
+    """blend_fused no longer refuses inputs that require grad: on the
+    indefinite-conic scene the gradients are finite and the hostile pair's
+    own conic and opacity gradients are exactly zero."""
     scene = to_torch(*_indefinite_scene())
-    scene[0].requires_grad_(True)
+    diff = [scene[i].requires_grad_(True) for i in (0, 1, 2, 3, 4, 7)]
     cfg = ttb.BlendConfig(width=32, height=16, max_pairs=128)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ttb.blend_fused(cfg, *scene)
+    img, dep, *_ = ttb.blend_fused(cfg, *scene)
+    (img.sum() + 0.1 * dep.sum()).backward()
+    for t in diff:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    assert bool((scene[1].grad[1] == 0).all()) and float(scene[2].grad[1]) == 0.0
 
 
 def test_tiling_roundtrip_matches_jax():

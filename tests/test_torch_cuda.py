@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
-The file itself imports no JAX:
+The file itself imports no JAX; ``tests/conftest.py`` does, so on a host
+without JAX run it without the conftest:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
 import math
@@ -20,9 +21,14 @@ from deblurgs_tpu_torch.core.camera import CameraStatic, get_projection_matrix  
 from deblurgs_tpu_torch.core.transforms import build_covariance  # noqa: E402
 from deblurgs_tpu_torch.device import resolve_device  # noqa: E402
 from deblurgs_tpu_torch.models import motion as motion_lib  # noqa: E402
+from deblurgs_tpu_torch.models.gaussians import GaussianConfig  # noqa: E402
 from deblurgs_tpu_torch.ops import binning, cuda_blend, cuda_blend_mixed  # noqa: E402
 from deblurgs_tpu_torch.ops import preprocess as pre_lib  # noqa: E402
 from deblurgs_tpu_torch.ops import tile_blend  # noqa: E402
+from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig  # noqa: E402
+from deblurgs_tpu_torch.train import checkpoint  # noqa: E402
+from deblurgs_tpu_torch.train import step as step_lib  # noqa: E402
+from deblurgs_tpu_torch.train.config import OptimizationConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 W, H, F = 256, 192, 3
@@ -32,8 +38,14 @@ W, H, F = 256, 192, 3
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    with torch.no_grad():            # the slice is forward-only
+    with torch.no_grad():            # gradients are taken explicitly below
         yield resolve_device("cuda")
+
+
+def assert_scaled_close(got, want, atol=2e-5):
+    """|got - want| / max|want| <= atol, per tensor."""
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got / scale, want / scale, atol=atol, rtol=0)
 
 
 def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False):
@@ -117,3 +129,126 @@ def test_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         cuda_blend_mixed.forward_mixed(cfg, staged._replace(
             fields=torch.zeros((16, 128), device=card)))
+
+
+def _cotangents(cfg, seed=1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((cfg.total_tiles, cfg.tile_px, 3), generator=g, device="cuda"),
+            0.05 * torch.randn((cfg.total_tiles, cfg.tile_px), generator=g, device="cuda"))
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["default", "fast"])
+def test_backward_kernel_matches_plain(card, fast):
+    cfg, flat = _staged_inputs(card, fast=fast)
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    C, D, T, _ = cuda_blend_mixed.forward_mixed(cfg, staged)
+    dl_pix, dl_d = _cotangents(cfg)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+    before = cuda_blend_mixed.backward_mixed.launches
+    got = cuda_blend_mixed.backward_mixed(cfg, staged, bg, T, dl_pix, dl_d, C, D)
+    assert cuda_blend_mixed.backward_mixed.launches == before + 1
+    total = cuda_blend_mixed.backward_total(cfg, bg, T, dl_pix, dl_d, C, D)
+    want = cuda_blend_mixed.backward_ref(cfg, staged.fields, staged.tile_start,
+                                         staged.tile_stop, dl_pix, dl_d, total)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and bool((got[10:] == 0).all())
+    for row in range(10):
+        assert_scaled_close(got[row], want[row])
+
+
+def test_reduce_kernel_matches_plain(card):
+    rng = np.random.default_rng(3)
+    P, n_emit, mp = 6000, 4000, 1 << 16
+    counts = rng.integers(1, 30, n_emit)
+    ranks = np.repeat(np.arange(n_emit), counts)[:mp]
+    total = ranks.shape[0]
+    ranks = np.pad(ranks, (0, mp - total), constant_values=P)
+    perm = rng.permutation(mp)          # ranks in any slot order, as after the depth sort
+    s_gc = torch.from_numpy(ranks[perm].astype(np.int32)).to(card)
+    grads = torch.from_numpy(rng.standard_normal((16, mp)).astype(np.float32)).to(card)
+    grads[10:] = 0
+    grads[:, s_gc == P] = float("nan")  # sentinel slots are never read
+    before = cuda_blend.reduce_sorted.launches
+    got = cuda_blend.reduce_sorted(grads, s_gc, P)
+    assert cuda_blend.reduce_sorted.launches == before + 1
+    want = cuda_blend.reduce_sorted_ref(grads, s_gc, P)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 10:] == 0).all())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    assert torch.equal(got, cuda_blend.reduce_sorted(grads, s_gc, P))
+
+
+def test_blend_gradients_are_deterministic(card):
+    cfg, flat = _staged_inputs(card)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+    w = torch.rand((F, H, W, 3), generator=torch.Generator(device="cuda").manual_seed(2),
+                   device=card)
+
+    def grads():
+        with torch.enable_grad():
+            diff = [t.clone().requires_grad_(True) for t in flat[:5] + [bg]]
+            img, dep, *_ = tile_blend.blend_fused(cfg, *diff[:5], flat[5], flat[6], diff[5])
+            return torch.autograd.grad((img * w).sum() + 0.1 * dep.sum(), diff)
+
+    a, b = grads(), grads()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y) and bool(torch.isfinite(x).all())
+
+
+def _trained_step_inputs(device, size=64):
+    state = checkpoint.load_checkpoint(
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "runs", "r5_jointb_state.npz"), device=device)
+    cs = CameraStatic(width=size, height=size, tanfovx=math.tan(0.55), tanfovy=math.tan(0.55))
+    proj = get_projection_matrix(0.01, 100.0, 1.1, 1.1, device=device)
+    st = step_lib.TrainStatics(
+        gcfg=GaussianConfig(sh_degree=2),
+        mcfg=motion_lib.MotionConfig(curve_order=9, n_subframes=21), ocfg=OptimizationConfig(),
+        rcfg=RasterizeConfig(tile_w=16, tile_h=16, need_n_contrib=False, max_pairs=1 << 20),
+        cs=cs, sh_degree=2, n_sub=21, batched_render=True, tone_mapping="identity")
+    gt = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (size, size, 3))
+                          .astype(np.float32)).to(device)
+    bg = torch.tensor([0.3, 0.5, 0.7], device=device)
+    return state._replace(step=7001), gt, proj, st, step_lib.StepDraws(bg=bg)
+
+
+def _mismatches(got, want, scale, tol) -> int:
+    return int((~torch.isclose(got.cpu(), want, atol=tol * scale, rtol=0)).sum())
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One step of the r5 trained state (64×64, F = 21, deep tile lists):
+    the card and the CPU give the same loss and pair count, the same
+    gradients (recovered from the first moments, which Adam updates
+    linearly) and the same parameter updates, but for a few Gaussians.
+    The two platforms round preprocess's matrix products differently, so a
+    (pixel, pair) gate near alpha = 1/255 or T = 1e-4 can flip and move one
+    Gaussian's gradient; Adam's normalised update then turns a small
+    gradient change into a visible step. Each leaf is compared after
+    scaling by its largest CPU value; at most 0.1% of a leaf (and at least
+    4 entries) may differ."""
+    with torch.enable_grad():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            state, gt, proj, st, draws = _trained_step_inputs(dev)
+            out[dev] = (state,) + step_lib.train_step(state, gt, 0, proj, st, draws=draws)
+    (s0, sc, mc), (_, sg, mg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(mg.loss.cpu(), mc.loss, rtol=1e-5, atol=0)
+    assert int(mg.num_pairs) == int(mc.num_pairs) and not bool(mg.overflowed)
+    report = {}
+    for group in ("adam_g", "adam_m"):
+        old, new_c, new_g = (getattr(x, group).mu for x in (s0, sc, sg))
+        for name, o, c, g in zip(old._fields, old, new_c, new_g):
+            grad_c, grad_g = (c - 0.9 * o) / 0.1, (g.cpu() - 0.9 * o) / 0.1
+            report[f"grad {name}"] = _mismatches(grad_g, grad_c, float(grad_c.abs().max()), 1e-3)
+    for group in ("params", "motion"):
+        old, new_c, new_g = (getattr(x, group) for x in (s0, sc, sg))
+        for name, o, c, g in zip(old._fields, old, new_c, new_g):
+            d_c, d_g = c - o, g.cpu() - o
+            report[f"step {name}"] = _mismatches(d_g, d_c, float(d_c.abs().max()), 1e-2)
+    numel = {**{f"grad {k}": v.numel() for k, v in s0.adam_g.mu._asdict().items()},
+             **{f"grad {k}": v.numel() for k, v in s0.adam_m.mu._asdict().items()},
+             **{f"step {k}": v.numel() for k, v in s0.params._asdict().items()},
+             **{f"step {k}": v.numel() for k, v in s0.motion._asdict().items()}}
+    bad = {k: (v, numel[k]) for k, v in report.items() if v > max(4, numel[k] // 1000)}
+    assert not bad, f"entries off per leaf (count, size): {bad}; all: {report}"
