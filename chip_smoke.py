@@ -43,8 +43,25 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               included) at 256×256, F = 21: one step whose step number fires
               densify_and_prune, and K2/K4 against their plain versions on
               its deep tile lists;
-9. yardstick  each kernel timed beside its plain version, its bound and, for
-              K3 and K4, the one PyTorch call that computes the same function.
+9. train_lockstep  ``train_step`` with ``layout="lockstep"`` and
+              ``batched_render=False`` on the parity scene: two steps through
+              K5, K6 and K4 per sub-frame, the first against the plain path;
+10. lockstep_parity  K5 and K6 against their plain versions on one view of
+              the parity scene, bit for bit (tile 16 and 32, need_n_contrib
+              on and off), K5 against K1 on the same list, two K6 calls equal;
+11. eval      held-out evaluation at full width (1920×1080, 100k Gaussians,
+              SH 2, lockstep, tile 16): a synthetic run written with the
+              port's writers, ``cli.evaluate.main`` on it and
+              ``optimize_test_poses`` (30 iterations a view) with the launch
+              counters zeroed just before and read just after; the pair
+              budget, the pose-fit criterion, ``render_view`` times, the
+              pose step timed through ``optimize_test_poses`` (and a copy of
+              its step timed in parts), and K5/K6 against their plain
+              versions on 64 tiles;
+12. yardstick each kernel timed beside its plain version, its bound and, for
+              K3 and K4, the one PyTorch call that computes the same function;
+              K5 and K6 at the eval phase's shapes, with K1 and K2 on the
+              same lists.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -74,6 +91,9 @@ PARITY_SIZE = (256, 256, 4000)
 SLICE_SIZE = (1920, 1080, 100_000)
 TRAINED_SIZE = 256
 TRAIN_SIZE = (1920, 1080, 100_000)
+EVAL_SIZE = (1920, 1080, 100_000)
+EVAL_CAMERAS, EVAL_HOLD = 8, 4   # views 000 and 004 held out (llffhold 4)
+POSE_TIMED_ITERS = 10         # iterations a view in each timed optimize_test_poses
 GRAD_ATOL = 2e-5              # |got - want| / max|want| for gradients
 
 
@@ -288,21 +308,23 @@ def device_profile(torch, fn, top: int = 12) -> dict:
 
 
 def zero_counts() -> None:
-    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
 
-    cuda_blend.broadcast_fields.launches = 0
-    cuda_blend_mixed.forward_mixed.launches = 0
-    cuda_blend_mixed.backward_mixed.launches = 0
-    cuda_blend.reduce_sorted.launches = 0
+    for fn in (cuda_blend.broadcast_fields, cuda_blend_mixed.forward_mixed,
+               cuda_blend_mixed.backward_mixed, cuda_blend.reduce_sorted,
+               cuda_blend_lockstep.forward_lockstep, cuda_blend_lockstep.backward_lockstep):
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
 
     return {"K3": cuda_blend.broadcast_fields.launches,
             "K1": cuda_blend_mixed.forward_mixed.launches,
             "K2": cuda_blend_mixed.backward_mixed.launches,
-            "K4": cuda_blend.reduce_sorted.launches}
+            "K4": cuda_blend.reduce_sorted.launches,
+            "K5": cuda_blend_lockstep.forward_lockstep.launches,
+            "K6": cuda_blend_lockstep.backward_lockstep.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -437,8 +459,8 @@ def phase_slice(torch, dev):
                        proj, cs, rcfg=qcfg, background=bg, nu=nu)
         torch.cuda.synchronize()
         launches = read_counts()
-        if launches["K2"] or launches["K4"]:
-            raise AssertionError(f"the forward path launched a backward kernel: {launches}")
+        if launches["K2"] or launches["K4"] or launches["K5"] or launches["K6"]:
+            raise AssertionError(f"the mixed forward path launched another kernel: {launches}")
         for name in ("K3", "K1"):
             n = launches[name]
             if n != 4 + F:
@@ -739,7 +761,7 @@ def phase_train(torch, dev):
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, n in launches.items():
-        if n != 7:
+        if n != (0 if name in ("K5", "K6") else 7):
             raise AssertionError(f"{name} launched {n} times in 7 train steps")
     if not all(math.isfinite(x) for x in losses_seen):
         raise AssertionError(f"non-finite loss: {losses_seen}")
@@ -810,12 +832,16 @@ def phase_train(torch, dev):
     return dict(k=k, pg=pg, launches=launches, err_k2=err_k2[1], err_k4=err_k4[1], k2_ms=k2_ms)
 
 
-def forward_stages(torch, bcfg, make_flat, bg, n_views: int, reps: int = 3) -> dict:
+def forward_stages(torch, bcfg, make_flat, bg, n_views: int, reps: int = 3,
+                   composite=None) -> dict:
     """CUDA-event breakdown of the forward path (no grad): ``make_flat()``
-    (sub-frame cameras + preprocess), compact, K3, sort, K1, compose."""
+    (cameras + preprocess), compact, K3, sort, the compositing kernel
+    (``composite``, default K1), compose."""
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, tile_blend
 
-    names = ("preprocess", "compact", "K3", "sort", "K1", "compose")
+    composite = composite or cuda_blend_mixed.forward_mixed
+    kernel = "K1" if composite is cuda_blend_mixed.forward_mixed else "K5"
+    names = ("preprocess", "compact", "K3", "sort", kernel, "compose")
     acc = {k: 0.0 for k in names}
     with torch.no_grad():
         for it in range(reps + 1):
@@ -829,7 +855,7 @@ def forward_stages(torch, bcfg, make_flat, bg, n_views: int, reps: int = 3) -> d
             ev[3].record()
             st = cuda_blend.sort_slots(bcfg, fslot, c)
             ev[4].record()
-            out = cuda_blend_mixed.forward_mixed(bcfg, st)
+            out = composite(bcfg, st)
             ev[5].record()
             tile_blend.compose(bcfg, *out, bg)[0].mean(0)
             ev[6].record()
@@ -877,7 +903,7 @@ def phase_train_trained(torch, dev):
                                                  torch.Generator(device=dev).manual_seed(SEED)))
     torch.cuda.synchronize()
     launches = read_counts()
-    if any(n != 1 for n in launches.values()):
+    if any(n != (0 if name in ("K5", "K6") else 1) for name, n in launches.items()):
         raise AssertionError(f"trained step launches: {launches}")
     if not math.isfinite(float(metrics.loss)) or int(metrics.overflow_count):
         raise AssertionError("trained step: non-finite loss or overflow")
@@ -964,7 +990,10 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     kept2 = int((st2.tile_stop - st2.tile_start).sum())
     max_pairs2 = st2.fields.shape[1]
     px2 = bcfg2.total_tiles * bcfg2.tile_px
-    k2_bytes = 40 * kept2 + 8 * bcfg2.total_tiles + 20 * px2 + 64 * max_pairs2
+    # out: rows 0-9 of each staged slot, what K4 reads; the zero fill of rows
+    # 10-15 and of the unstaged tail is a cost of the [16, max_pairs] layout
+    k2_bytes = 40 * kept2 + 8 * bcfg2.total_tiles + 20 * px2 + 40 * kept2
+    k2_fill = 64 * max_pairs2 - 40 * kept2
     k2_byte_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2_op_ms = EVAL_OPS * evals2 / F32_OPS_PER_S * 1e3
 
@@ -984,7 +1013,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
     emit("yardstick_backward",
          K2=dict(ms=k2_ms, plain_ms=k2_plain, staged_pairs=kept2, evaluations=evals2,
-                 bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms),
+                 bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms,
+                 layout_fill_bytes=k2_fill),
          K4=dict(ms=k4_ms, plain_ms=k4_plain, library_ms=k4_lib,
                  library_call="torch.zeros((P+1, 10)).index_add_(0, rank, grads[:10].T)",
                  library_max_abs_err=k4_lib_err, ranks=P, bytes=k4_bytes, bound_ms=k4_bound))
@@ -1016,6 +1046,566 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     ]
 
 
+# ---------------------------------------------------------------------------
+# the lockstep layout (K5, K6) and held-out evaluation
+# ---------------------------------------------------------------------------
+
+
+def rotation(axis_angle) -> np.ndarray:
+    """Axis-angle [3] -> rotation matrix [3, 3] (float64, Rodrigues)."""
+    v = np.asarray(axis_angle, np.float64)
+    th = float(np.linalg.norm(v))
+    if th == 0.0:
+        return np.eye(3)
+    k = v / th
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + math.sin(th) * K + (1 - math.cos(th)) * (K @ K)
+
+
+def view_camera(torch, rot: np.ndarray, center: np.ndarray, proj):
+    """CameraArrays batched [1, ...] of a camera with c2w rotation ``rot``
+    (columns: the camera axes in world) at ``center``."""
+    from deblurgs_tpu_torch.core.camera import c2w_to_view, make_camera_arrays
+
+    dev = proj.device
+    view = c2w_to_view(torch.as_tensor(rot, dtype=torch.float32, device=dev)[None],
+                       torch.as_tensor(center, dtype=torch.float32, device=dev)[None])
+    return make_camera_arrays(view, proj)
+
+
+def check_k5(torch, where: str, bcfg, staged, got, tiles=None) -> float:
+    """K5's outputs against its plain version (on ``tiles`` or all): bit
+    for bit, n_con included. Returns the max |diff| (0.0)."""
+    from deblurgs_tpu_torch.ops import cuda_blend_lockstep as cbl
+
+    want = cbl.forward_lockstep_ref(bcfg, staged.fields, staged.tile_start, staged.tile_stop,
+                                    tiles=tiles)
+    if tiles is not None:
+        got = tuple(g[tiles] for g in got)
+    for name, g, w in zip(("C", "D", "final_T", "n_con"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K5 {where}: {name} differs from the plain version "
+                                 f"(max |diff| {max_err(g, w):.3e})")
+    return max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+
+
+def check_k6(torch, where: str, bcfg, staged, bg, T, dl_pix, dl_d, C, D, got, tiles=None):
+    """K6's per-slot gradients against its plain version (on ``tiles`` or
+    all): slot for slot, bit for bit; rows 10-15 zero. Returns the max
+    |diff| (0.0)."""
+    from deblurgs_tpu_torch.ops import cuda_blend_lockstep as cbl
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed as cbm
+
+    total = cbm.backward_total(bcfg, bg, T, dl_pix, dl_d, C, D)
+    want = cbl.backward_lockstep_ref(bcfg, staged.fields, staged.tile_start, staged.tile_stop,
+                                     dl_pix, dl_d, total, tiles=tiles)
+    if tiles is not None:
+        slots = tile_slots(torch, staged, tiles)
+        got, want = got[:, slots], want[:, slots]
+    if not bool((got[10:] == 0).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K6 {where}: rows 10-15 not zero or non-finite output")
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 {where}: differs from the plain version "
+                             f"(max |diff| {max_err(got, want):.3e})")
+    return max_err(got, want)
+
+
+def phase_lockstep_parity(torch, dev):
+    """K5 and K6 against their plain versions on one view of the parity
+    scene, tile 16 and 32, need_n_contrib on and off; K5 against K1 on
+    the same list; two K6 calls bitwise equal."""
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep as cbl
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed
+    from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
+
+    W, H, N = PARITY_SIZE
+    gaussians = make_scene(N, 2, np.random.default_rng(SEED + 1), dev)
+    cs, proj = camera(W, H, 1.2, dev)
+    cams = view_camera(torch, rotation([0.02, 0.1, 0.0]), np.array([0.3, 0.0, -6.0]), proj)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    errs, k5_err, k6_err = {}, 0.0, 0.0
+    for tile in (16, 32):
+        for need in (True, False):
+            rcfg = RasterizeConfig(tile_w=tile, tile_h=tile, max_pairs=1 << 17,
+                                   need_n_contrib=need, layout="lockstep")
+            bcfg = rcfg.blend_config(cs)
+            flat = flat_preprocess(gaussians, cams, cs, rcfg)
+            st = cuda_blend.sort_stage(bcfg, *flat, bcfg.max_pairs)
+            if int(st.total) > bcfg.max_pairs:
+                raise AssertionError("lockstep parity scene overflows its pair budget")
+            got = cbl.forward_lockstep(bcfg, st)
+            torch.cuda.synchronize()
+            name = f"t{tile}_{'n_contrib' if need else 'cull'}"
+            k5_err = max(k5_err, check_k5(torch, f"parity {name}", bcfg, st, got))
+            k1 = cuda_blend_mixed.forward_mixed(
+                RasterizeConfig(tile_w=tile, tile_h=tile, max_pairs=1 << 17,
+                                need_n_contrib=need).blend_config(cs), st)
+            if not all(torch.equal(a, b) for a, b in zip(got, k1)):
+                raise AssertionError(f"K5 {name}: differs from K1 on the same list")
+            C, D, T, _ = got
+            dl_pix = torch.randn((bcfg.num_tiles, bcfg.tile_px, 3), generator=gen, device=dev)
+            dl_d = 0.05 * torch.randn((bcfg.num_tiles, bcfg.tile_px), generator=gen, device=dev)
+            pg = cbl.backward_lockstep(bcfg, st, bg, T, dl_pix, dl_d, C, D)
+            k6_err = max(k6_err, check_k6(torch, f"parity {name}", bcfg, st, bg, T, dl_pix,
+                                          dl_d, C, D, pg))
+            if not torch.equal(pg, cbl.backward_lockstep(bcfg, st, bg, T, dl_pix, dl_d, C, D)):
+                raise AssertionError(f"K6 {name}: two calls differ")
+            errs[name] = dict(pairs=int(st.total), max_per_tile=int(st.max_per_tile),
+                              n_con_max=int(got[3].max()), K5_equals_K1=True,
+                              K6_bitwise_repeat=True)
+    emit("lockstep_parity", size=[W, H], gaussians=N, K5_max_abs_err=k5_err,
+         K6_max_abs_err=k6_err, cases=errs)
+    return k5_err, k6_err
+
+
+def phase_train_lockstep(torch, dev):
+    """``train_step`` with ``layout="lockstep"`` and ``batched_render=False``
+    on the parity scene: every sub-frame renders through K5 and
+    backpropagates through K6 and K4. Two steps; the kernel path's loss and
+    pair count against the same step on the plain versions (the state
+    copied to the CPU)."""
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+    from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from deblurgs_tpu_torch.train import checkpoint, step as step_lib
+    from deblurgs_tpu_torch.train.config import OptimizationConfig
+
+    W, H, N = PARITY_SIZE
+    F = 3
+    model = make_scene(N, 2, np.random.default_rng(SEED + 1), dev)
+    params = gm.GaussianParams(*(getattr(model, k).detach() for k in gm.GaussianParams._fields))
+    aux = gm.GaussianAux(torch.ones(N, dtype=torch.bool, device=dev),
+                         *(torch.zeros(N, device=dev) for _ in range(3)))
+    mcfg = motion_lib.MotionConfig(curve_order=9, n_subframes=F)
+    motion = motion_lib.init_motion(
+        torch.eye(3, device=dev)[None], torch.tensor([[0.0, 0.0, -6.0]], device=dev), mcfg,
+        torch.Generator(device=dev).manual_seed(SEED), init_noise=0.01).params()
+    cs, proj = camera(W, H, 1.2, dev)
+    ocfg = OptimizationConfig(iterations=10_000, curve_start_iter=1, densify_from_iter=10**9,
+                              opacity_reset_interval=10**9)
+    rcfg = RasterizeConfig(tile_w=16, tile_h=16, max_pairs=1 << 17, need_n_contrib=False,
+                           layout="lockstep")
+    st = step_lib.TrainStatics(gcfg=gm.GaussianConfig(sh_degree=2), mcfg=mcfg, ocfg=ocfg,
+                               rcfg=rcfg, cs=cs, sh_degree=2, n_sub=F, batched_render=False)
+    state = step_lib.init_state(params, motion, aux)._replace(step=100)
+    gt = torch.rand((H, W, 3), generator=torch.Generator(device=dev).manual_seed(SEED + 10),
+                    device=dev)
+    draws = [step_lib.draw_step(state._replace(step=100 + i), st, gt.shape,
+                                torch.Generator(device=dev).manual_seed(SEED + i))
+             for i in range(2)]
+    zero_counts()
+    s, losses_seen, pairs = state, [], []
+    for d in draws:
+        s, metrics = step_lib.train_step(s, gt, 0, proj, st, draws=d)
+        losses_seen.append(float(metrics.loss))
+        pairs.append(int(metrics.num_pairs))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {"K3": 2 * F, "K1": 0, "K2": 0, "K4": 2 * F, "K5": 2 * F, "K6": 2 * F}
+    if launches != want:
+        raise AssertionError(f"lockstep train step launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses_seen) or int(s.overflow_count):
+        raise AssertionError("lockstep train step: non-finite loss or overflow")
+    # the first step again, on the plain versions
+    state_cpu = checkpoint.state_from_arrays(checkpoint.state_to_arrays(state), device="cpu")
+    d_cpu = type(draws[0])(*(None if x is None else x.cpu() for x in draws[0]))
+    _, m_cpu = step_lib.train_step(state_cpu, gt.cpu(), 0, proj.cpu(), st, draws=d_cpu)
+    err_loss = abs(float(m_cpu.loss) - losses_seen[0]) / abs(losses_seen[0])
+    if err_loss > 1e-5 or int(m_cpu.num_pairs) != pairs[0]:
+        raise AssertionError(f"lockstep train step: card loss {losses_seen[0]} / pairs "
+                             f"{pairs[0]}, plain {float(m_cpu.loss)} / {int(m_cpu.num_pairs)}")
+    emit("train_lockstep", size=[W, H], gaussians=N, subframes=F, tile=16, loss=losses_seen,
+         pairs=pairs, launches=launches, loss_rel_err_vs_plain=err_loss)
+
+
+def eval_poses(n: int, hold: int, rng: np.random.Generator):
+    """The eval phase's cameras: ``n`` c2w rotations and centres on an arc
+    of radius 6 around the origin, looking at it, and the held-out views'
+    COLMAP poses, perturbed by about 0.5 degrees and 2 cm."""
+    true, colmap_pose = [], []
+    for i, a in enumerate(np.linspace(-0.35, 0.35, n)):
+        rot = rotation([0.05 * math.sin(3 * a), a, 0.0])
+        center = rot @ np.array([0.0, 0.0, -6.0])
+        true.append((rot, center))
+        if i % hold == 0:
+            axis = rng.standard_normal(3)
+            rot = rotation(math.radians(0.5) * axis / np.linalg.norm(axis)) @ rot
+            shift = rng.standard_normal(3)
+            center = center + 0.02 * shift / np.linalg.norm(shift)
+        colmap_pose.append((rot, center))
+    return true, colmap_pose
+
+
+def write_eval_run(torch, dev, root: str) -> dict:
+    """A synthetic trained run at full width, written with the port's own
+    writers: the COLMAP scene (text), ground-truth PNGs rendered at the
+    true poses, the Gaussian PLY, the curves and a ``cfg_args`` without
+    ``kernel_layout`` / ``tile`` / ``window`` (so evaluation takes the
+    lockstep layout at tile 16) and with a probed ``max_pairs``."""
+    from PIL import Image
+
+    from deblurgs_tpu_torch.data import colmap
+    from deblurgs_tpu_torch.data.gaussian_ply import save_gaussian_ply
+    from deblurgs_tpu_torch.eval.export import to_uint8
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib, tonemap
+    from deblurgs_tpu_torch.ops import rasterize
+    from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from deblurgs_tpu_torch.train.checkpoint import save_motion
+
+    (W, H, N), n_cams, hold = EVAL_SIZE, EVAL_CAMERAS, EVAL_HOLD
+    source, model_dir = os.path.join(root, "scene"), os.path.join(root, "model")
+    sparse = os.path.join(source, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(source, "images"))
+    model = make_scene(N, 2, np.random.default_rng(SEED), dev)
+    fovx = 1.2
+    cs, proj = camera(W, H, fovx, dev)
+    true, colmap_pose = eval_poses(n_cams, hold, np.random.default_rng(SEED + 11))
+
+    probe = RasterizeConfig(tile_w=16, tile_h=16)
+    cams = [view_camera(torch, r, c, proj) for r, c in true + colmap_pose]
+    max_pairs = max(size_max_pairs(model, c, cs, probe) for c in cams)
+    rcfg = RasterizeConfig(tile_w=16, tile_h=16, max_pairs=max_pairs, layout="lockstep")
+    rin = model.render_inputs()
+    bg = torch.zeros(3, device=dev)
+    for i, cam in enumerate(cams[:n_cams]):
+        one = type(cam)(*(x[0] for x in cam))
+        with torch.no_grad():
+            out = rasterize.render(rin["means3d"], rin["scales"], rin["rotations"],
+                                   rin["opacities"], rin["shs"], one, cs, bg, cfg=rcfg,
+                                   sh_degree=2)
+        if int(out.num_pairs) > max_pairs:
+            raise AssertionError("ground-truth render overflows its pair budget")
+        img = torch.clamp(tonemap.tone_map(out.image, "gamma"), 0.0, 1.0)
+        Image.fromarray(to_uint8(img)).save(os.path.join(source, "images", f"{i:03d}.png"))
+
+    fx, fy = W / (2 * cs.tanfovx), H / (2 * cs.tanfovy)
+    colmap.write_cameras_text({1: colmap.ColmapCamera(1, "PINHOLE", W, H,
+                                                      np.array([fx, fy, W / 2, H / 2]))},
+                              os.path.join(sparse, "cameras.txt"))
+    images = {}
+    for i, (rot, center) in enumerate(colmap_pose):
+        # CameraInfo.R = c2w rotation = qvec2rotmat(qvec).T; T = -center @ rot
+        images[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat2qvec(rot.T), -center @ rot, 1,
+                                           f"{i:03d}.png", np.zeros((0, 2)), np.zeros(0, np.int64))
+    colmap.write_images_text(images, os.path.join(sparse, "images.txt"))
+    pts = model.xyz.detach()[:1000].cpu().numpy()
+    with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+        for i, p in enumerate(pts):
+            f.write(f"{i} {p[0]:.7g} {p[1]:.7g} {p[2]:.7g} 128 128 128 0.5\n")
+
+    params = gm.GaussianParams(*(getattr(model, k).detach() for k in gm.GaussianParams._fields))
+    aux = gm.GaussianAux(torch.ones(N, dtype=torch.bool, device=dev),
+                         *(torch.zeros(N, device=dev) for _ in range(3)))
+    save_gaussian_ply(os.path.join(model_dir, "point_cloud", "iteration_7000",
+                                   "point_cloud.ply"), params, aux, gm.GaussianConfig(sh_degree=2))
+    train = [t for i, t in enumerate(true) if i % hold]
+    motion = motion_lib.init_motion(
+        torch.as_tensor(np.stack([r for r, _ in train]), dtype=torch.float32, device=dev),
+        torch.as_tensor(np.stack([c for _, c in train]), dtype=torch.float32, device=dev),
+        motion_lib.MotionConfig(curve_order=9, n_subframes=21),
+        torch.Generator(device=dev).manual_seed(SEED))
+    save_motion(os.path.join(model_dir, "cm.npz"), motion.params())
+    with open(os.path.join(model_dir, "cfg_args"), "w") as f:
+        f.write(f"Namespace(source_path={source!r}, model_path={model_dir!r}, sh_degree=2, "
+                f"curve_order=9, num_subframes=21, curve_type='se3', resolution=1, eval=True, "
+                f"llffhold={hold}, max_pairs={max_pairs}, images='images')")
+    return dict(source=source, model=model_dir, max_pairs=max_pairs, true=true)
+
+
+class RenderLog:
+    """Wraps ``render`` where the eval modules call it: every render's
+    pair count is held to the session's budget and recorded."""
+
+    def __init__(self, max_pairs: int):
+        self.max_pairs, self.pairs, self.longest, self.calls = max_pairs, 0, 0, 0
+
+    def install(self):
+        from deblurgs_tpu_torch.eval import pose_opt, session
+
+        real = session.render
+
+        def render(*args, **kwargs):
+            out = real(*args, **kwargs)
+            n = int(out.num_pairs)
+            if n > self.max_pairs:
+                raise AssertionError(f"pair overflow in evaluation: {n} > {self.max_pairs}")
+            self.pairs, self.calls = max(self.pairs, n), self.calls + 1
+            self.longest = max(self.longest, int(out.max_per_tile))
+            return out
+
+        session.render = pose_opt.render = render
+        return real
+
+    @staticmethod
+    def remove(real):
+        from deblurgs_tpu_torch.eval import pose_opt, session
+
+        session.render = pose_opt.render = real
+
+
+def median(xs):
+    return float(np.median(np.asarray(xs)))
+
+
+def phase_eval(torch, dev):
+    """Held-out evaluation at full width through the user's entry points:
+    ``cli.evaluate.main`` on a synthetic run, then ``optimize_test_poses``
+    with 30 iterations a view; launch counts, pair budget, pose-fit
+    criterion, timings, and K5/K6 against their plain versions on sampled
+    tiles with the pose loss's own cotangent."""
+    import tempfile
+
+    from deblurgs_tpu_torch.cli import evaluate
+    from deblurgs_tpu_torch.data.scene import load_image
+    from deblurgs_tpu_torch.eval import pose_opt
+    from deblurgs_tpu_torch.eval.session import load_session, render_view
+    from deblurgs_tpu_torch.models import gaussians as gm, tonemap
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep as cbl
+    from deblurgs_tpu_torch.ops import tile_blend
+    from deblurgs_tpu_torch.train.losses import l1_loss
+
+    (W, H, N) = EVAL_SIZE
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        run = write_eval_run(torch, dev, root)
+        write_s = time.perf_counter() - t0
+        log = RenderLog(run["max_pairs"])
+        real = log.install()
+        try:
+            # ---- the main path, counted ----
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()     # what earlier phases still hold
+            zero_counts()
+            t0 = time.perf_counter()
+            results = evaluate.main(["-m", run["model"], "-r", "1", "--backend", "pallas",
+                                     "--num_iter_per_view", "2", "--device", str(dev)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            session = load_session(run["model"], resolution=1, backend="pallas", device=dev)
+            test = session.scene.info.test_cameras
+            gts = torch.as_tensor(np.stack([load_image(c, 1) for c in test]), device=dev)
+            R = torch.as_tensor(np.stack([c.R for c in test]), dtype=torch.float32, device=dev)
+            T = torch.as_tensor(np.stack([c.T for c in test]), dtype=torch.float32, device=dev)
+            proj = torch.as_tensor(session.scene.proj, device=dev)
+
+            def l1(pose, i):
+                img, _ = render_view(session, pose_opt.pose_to_camera(pose, i, proj))
+                return float(l1_loss(img, gts[i]))
+
+            start = pose_opt.init_pose_params(R, T)
+            l1_start = [l1(start, i) for i in range(len(test))]
+            fit = pose_opt.optimize_test_poses(session, gts, R, T, proj, num_iter_per_view=30,
+                                               lr_trans=5e-3, verbose=False)
+            l1_fit = [l1(fit, i) for i in range(len(test))]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        finally:
+            RenderLog.remove(real)
+        with open(os.path.join(run["model"], "eval.txt")) as f:
+            eval_txt = f.read().strip().splitlines()
+        artifacts = sorted(os.path.relpath(os.path.join(d, x), run["model"])
+                           for d, _, files in os.walk(os.path.join(run["model"], "test"))
+                           for x in files)
+    if [line.split(":")[0] for line in eval_txt] != ["unfit", "fit"]:
+        raise AssertionError(f"eval.txt: {eval_txt}")
+    want_files = [f"test/{s}/{k}/{i:03d}.png" for s in ("fit", "unfit")
+                  for k in ("error", "gt", "renders") for i in range(len(test))]
+    if artifacts != sorted(want_files):
+        raise AssertionError(f"evaluate wrote {artifacts}")
+    for name in ("K3", "K4", "K5", "K6"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by evaluation: {launches}")
+    if launches["K1"] or launches["K2"]:
+        raise AssertionError(f"evaluation launched the mixed kernels: {launches}")
+    for i, (a, b) in enumerate(zip(l1_start, l1_fit)):
+        if not b < 0.7 * a:
+            raise AssertionError(f"pose refinement of view {i}: L1 {a:.5f} -> {b:.5f}, "
+                                 f"not below 0.7x its start")
+    for split in ("unfit", "fit"):
+        if not all(math.isfinite(results[split][k]) for k in ("PSNR", "SSIM")):
+            raise AssertionError(f"non-finite metrics: {results}")
+
+    # ---- timings: render_view, the pose-refinement step as optimize_test_poses
+    # runs it (its per-step host sync and StepLR included), and its parts ----
+    cam0 = pose_opt.pose_to_camera(fit, 0, proj)
+    render_ms = []
+    for it in range(9):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        render_view(session, cam0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if it >= 2:
+            render_ms.append(ev[0].elapsed_time(ev[1]))
+
+    def refine(iters):
+        return pose_opt.optimize_test_poses(session, gts, R, T, proj, num_iter_per_view=iters,
+                                            lr_trans=5e-3, verbose=False)
+
+    refine(1)
+    loop_ms = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        refine(POSE_TIMED_ITERS)
+        ev[1].record()
+        torch.cuda.synchronize()
+        loop_ms.append(ev[0].elapsed_time(ev[1]) / (POSE_TIMED_ITERS * len(test)))
+    profile = device_profile(torch, lambda: refine(1))
+
+    # a copy of the loop's step, timed in parts (no per-step sync, no StepLR)
+    quat = fit.quat.clone().requires_grad_(True)
+    trans = fit.trans.clone().requires_grad_(True)
+    opt = torch.optim.Adam([{"params": [quat], "lr": 5e-5}, {"params": [trans], "lr": 5e-4}],
+                           eps=1e-15)
+    rin = gm.render_inputs(session.params, session.gcfg)
+    rin = {k: v.detach() for k, v in rin.items()}
+    from deblurgs_tpu_torch.ops.rasterize import render
+
+    def pose_step(ev=None):
+        if ev:
+            ev[0].record()
+        cam = pose_opt.pose_to_camera(pose_opt.PoseParams(quat, trans), 0, proj)
+        out = render(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
+                     rin["shs"], cam, session.scene.camera_static, torch.zeros(3, device=dev),
+                     cfg=session.rcfg, sh_degree=2, active=session.aux.active)
+        loss = l1_loss(torch.clamp(tonemap.tone_map(out.image, session.tone_mapping), 0, 1),
+                       gts[0])
+        if ev:
+            ev[1].record()
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        if ev:
+            ev[2].record()
+        opt.step()
+        if ev:
+            ev[3].record()
+
+    parts = {"step": [], "forward": [], "backward": [], "adam": []}
+    for it in range(9):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        pose_step(ev)
+        torch.cuda.synchronize()
+        if it >= 2:
+            parts["step"].append(ev[0].elapsed_time(ev[3]))
+            parts["forward"].append(ev[0].elapsed_time(ev[1]))
+            parts["backward"].append(ev[1].elapsed_time(ev[2]))
+            parts["adam"].append(ev[2].elapsed_time(ev[3]))
+    bcfg = session.rcfg.blend_config(session.scene.camera_static)
+
+    def make_flat():
+        cams = pose_opt.pose_to_camera(fit, 0, proj)
+        return flat_preprocess((rin, 2), type(cams)(*(x[None] for x in cams)),
+                               session.scene.camera_static, session.rcfg, session.aux.active)
+
+    stages = forward_stages(torch, bcfg, make_flat, torch.zeros(3, device=dev), 1, reps=5,
+                            composite=cbl.forward_lockstep)
+
+    # ---- K5 and K6 against their plain versions on 64 sampled tiles ----
+    with torch.no_grad():
+        staged = cuda_blend.sort_stage(bcfg, *make_flat(), bcfg.max_pairs)
+        C, D, T_, n_con = cbl.forward_lockstep(bcfg, staged)
+        image = tile_blend.compose(bcfg, C, D, T_, n_con, torch.zeros(3, device=dev))[0]
+    img = image.detach().requires_grad_(True)
+    loss = l1_loss(torch.clamp(tonemap.tone_map(img, session.tone_mapping), 0, 1), gts[0])
+    d_img = torch.autograd.grad(loss, img)[0]
+    dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
+    dl_d = torch.zeros_like(D)
+    bg = torch.zeros(3, device=dev)
+    pg = cbl.backward_lockstep(bcfg, staged, bg, T_, dl_pix, dl_d, C, D)
+    tiles = torch.from_numpy(np.random.default_rng(SEED + 12).choice(
+        bcfg.num_tiles, 64, replace=False)).to(dev)
+    err_k5 = check_k5(torch, "eval (64 tiles)", bcfg, staged, (C, D, T_, n_con), tiles=tiles)
+    err_k6 = check_k6(torch, "eval (64 tiles)", bcfg, staged, bg, T_, dl_pix, dl_d, C, D, pg,
+                      tiles=tiles)
+    emit("eval", width=W, height=H, gaussians=N, sh_degree=2, views=EVAL_CAMERAS,
+         held_out=len(test), tile=16, layout=session.rcfg.layout,
+         need_n_contrib=session.rcfg.need_n_contrib, max_pairs=run["max_pairs"],
+         max_num_pairs=log.pairs, max_per_tile=log.longest, renders=log.calls,
+         write_run_s=round(write_s, 3), cli_s=round(cli_s, 3),
+         unfit=results["unfit"], fit=results["fit"], l1_start=l1_start, l1_fit_30=l1_fit,
+         launches=launches, render_view_ms=round(median(render_ms), 4),
+         render_view_ms_all=[round(x, 4) for x in render_ms],
+         pose_step_ms=round(median(loop_ms), 4),
+         pose_step_ms_all=[round(x, 4) for x in loop_ms],
+         pose_step_copy_ms=round(median(parts["step"]), 4),
+         pose_step_copy_parts_ms={k: round(median(v), 4) for k, v in parts.items()
+                                  if k != "step"},
+         render_stages_no_grad_ms=stages, peak_memory_gb=round(peak_gb, 3),
+         err_k5_sampled_tiles=err_k5, err_k6_sampled_tiles=err_k6, profile=profile)
+    return dict(bcfg=bcfg, staged=staged, out=(C, D, T_, n_con), dl_pix=dl_pix, dl_d=dl_d,
+                pg=pg, launches=launches, err_k5=err_k5, err_k6=err_k6)
+
+
+def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
+    """K5 and K6 timed at the eval phase's shapes beside their plain
+    versions and bounds (reckoned as for K1 and K2), and K1/K2 on the same
+    lists; returns their entries of the kernels line."""
+    from deblurgs_tpu_torch.ops import cuda_blend_lockstep as cbl
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed
+    from deblurgs_tpu_torch.ops.tile_blend import BlendConfig
+
+    bcfg, st = ev["bcfg"], ev["staged"]
+    st = st._replace(tile_start=st.tile_start.to(torch.int32),
+                     tile_stop=st.tile_stop.to(torch.int32))
+    mixed = BlendConfig(**{**bcfg.__dict__, "layout": "mixed"})
+    C, D, T, _ = ev["out"]
+    bg = torch.zeros(3, device=st.fields.device)
+    kargs = (bg, T, ev["dl_pix"], ev["dl_d"], C, D)
+
+    def plain_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    k5_ms = cuda_ms(lambda: cbl.forward_lockstep(bcfg, st), 10)
+    k1_ms = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(mixed, st), 10)
+    k6_ms = cuda_ms(lambda: cbl.backward_lockstep(bcfg, st, *kargs), 10)
+    k2_ms = cuda_ms(lambda: cuda_blend_mixed.backward_mixed(mixed, st, *kargs), 10)
+    args = (bcfg, st.fields, st.tile_start, st.tile_stop)
+    k5_plain = plain_ms(lambda: cbl.forward_lockstep_ref(*args))
+    total = cuda_blend_mixed.backward_total(bcfg, *kargs)
+    k6_plain = plain_ms(lambda: cbl.backward_lockstep_ref(*args, kargs[2], kargs[3], total))
+    *_, evals = cbl.forward_lockstep_ref(*args, count_evals=True)
+    evals = int(evals)
+    staged_pairs = int((st.tile_stop - st.tile_start).sum())
+    px = bcfg.num_tiles * bcfg.tile_px
+    ops_ms = EVAL_OPS * evals / F32_OPS_PER_S * 1e3
+    k5_bytes = (40 * staged_pairs + 8 * bcfg.num_tiles
+                + px * (12 + 4 + 4 + (4 if bcfg.need_n_contrib else 0)))
+    k6_bytes = 40 * staged_pairs + 8 * bcfg.num_tiles + 20 * px + 40 * staged_pairs
+    k6_fill = 64 * st.fields.shape[1] - 40 * staged_pairs    # as K2's (phase_yardstick)
+    k5_bound = max(k5_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+    k6_bound = max(k6_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+    emit("yardstick_lockstep",
+         K5=dict(ms=k5_ms, plain_ms=k5_plain, K1_same_list_ms=k1_ms, staged_pairs=staged_pairs,
+                 evaluations=evals, bytes=k5_bytes, bytes_ms=k5_bytes / HBM_BYTES_PER_S * 1e3,
+                 ops=EVAL_OPS * evals, ops_ms=ops_ms, bound_ms=k5_bound),
+         K6=dict(ms=k6_ms, plain_ms=k6_plain, K2_same_list_ms=k2_ms, staged_pairs=staged_pairs,
+                 evaluations=evals, bytes=k6_bytes, bytes_ms=k6_bytes / HBM_BYTES_PER_S * 1e3,
+                 ops=EVAL_OPS * evals, ops_ms=ops_ms, bound_ms=k6_bound,
+                 layout_fill_bytes=k6_fill))
+    by = lambda b: "bytes" if b / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"  # noqa: E731
+    return [
+        {"name": "K5 forward_lockstep", "route": "cuda",
+         "source": "deblurgs_tpu_torch/csrc/forward_lockstep.cu",
+         "replaces": "deblurgs_tpu/ops/pallas_blend.py:765", "launches": ev["launches"]["K5"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+         "bound_by": by(k5_bytes), "library_ms": None},
+        {"name": "K6 backward_lockstep", "route": "cuda",
+         "source": "deblurgs_tpu_torch/csrc/backward_lockstep.cu",
+         "replaces": "deblurgs_tpu/ops/pallas_blend.py:951", "launches": ev["launches"]["K6"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
+         "bound_by": by(k6_bytes), "library_ms": None},
+    ]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deblurgs_tpu_torch")):
         fail("the deblurgs_tpu_torch package is not beside this script")
@@ -1037,10 +1627,16 @@ def main() -> int:
     k2_parity, k4_parity = phase_train_parity(torch, dev)
     tr = phase_train(torch, dev)
     k2_trained, k4_trained = phase_train_trained(torch, dev)
+    phase_train_lockstep(torch, dev)
+    with torch.no_grad():
+        k5_parity, k6_parity = phase_lockstep_parity(torch, dev)
+    ev = phase_eval(torch, dev)
     with torch.no_grad():
         kernels = phase_yardstick(torch, sl, max(k3_parity, sl["err_k3"]), k1_err, tr,
                                   max(k2_parity, tr["err_k2"], k2_trained),
                                   max(k4_parity, tr["err_k4"], k4_trained))
+        kernels += phase_yardstick_lockstep(torch, ev, max(k5_parity, ev["err_k5"]),
+                                            max(k6_parity, ev["err_k6"]))
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """deblurgs_tpu_torch — PyTorch/CUDA port of the DeblurGS framework.
 
-The render path and the train step of ``deblurgs_tpu`` (camera-motion blur
-synthesis over per-image SE(3) Bézier trajectories, rendered by a
-tile-binned Gaussian-splatting rasterizer, trained jointly with the
-trajectories) rebuilt on PyTorch, with hand-written CUDA kernels for the
+The render path, the train step and held-out evaluation of ``deblurgs_tpu``
+(camera-motion blur synthesis over per-image SE(3) Bézier trajectories,
+rendered by a tile-binned Gaussian-splatting rasterizer, trained jointly
+with the trajectories; ``data/`` reads datasets and trained runs,
+``eval/`` and ``cli/evaluate.py`` score held-out views after refining
+their poses) rebuilt on PyTorch, with hand-written CUDA kernels for the
 hot spots:
 
 - ``ops/cuda_blend.py``: pair staging (expansion, tile cull, two-key sort),
@@ -11,6 +13,9 @@ hot spots:
   (counterpart of ``deblurgs_tpu/ops/pallas_blend.py``);
 - ``ops/cuda_blend_mixed.py``: the front-to-back compositing kernel K1 and
   its backward K2 (counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``);
+- ``ops/cuda_blend_lockstep.py``: the same function on one view, K5 and its
+  backward K6 (``layout="lockstep"``; counterpart of ``pallas_blend.py``'s
+  ``forward`` and ``backward``);
 - ``train/step.py``: the train step (counterpart of
   ``deblurgs_tpu/train/step.py``), gradients by autograd around K2 and K4.
 

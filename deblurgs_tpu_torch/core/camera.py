@@ -84,6 +84,25 @@ def get_projection_matrix(znear: float, zfar: float, fovx: float, fovy: float,
     return torch.as_tensor(P, dtype=dtype, device=resolve_device(device))
 
 
+def world2view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """COLMAP-style (c2w rotation ``R`` as a CameraInfo stores it, w2c
+    translation ``t``) -> transposed W2V [4, 4] float32 (reference
+    ``getWorld2View2(R, t).transpose(0, 1)``)."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = R.transpose()
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+    return np.ascontiguousarray(Rt.T).astype(np.float32)
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def c2w_to_view(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """c2w (rotation [..., 3, 3], centre [..., 3]) -> view [..., 4, 4]:
     ``view[:3, :3] = rot``, ``view[3, :3] = -trans @ rot`` (reference

@@ -4,10 +4,14 @@ reduce (K4).
 Counterpart of ``deblurgs_tpu/ops/pallas_blend.py``: ``broadcast_fields``
 (K3, ``pallas_blend.py:179-233``), ``_tile_visible`` (``:236-275``),
 ``_sort_stage`` (``:278-369``), and ``_reduce_sorted`` (K4, ``:858-926``)
-with ``reduce_pair_grads`` (``:929-948``). The TPU grid bookkeeping of
-that module (``prepare_mixed``'s step maps, lockstep step maps,
-parity-interleaved buffers, one-hot routing) has no counterpart: the
-compositing kernels walk each tile's pair range directly.
+with ``reduce_pair_grads`` (``:929-948``). :func:`sort_stage` yields what
+every compositing kernel reads, K5/K6 (``layout="lockstep"``) as K1/K2:
+the sorted ``fields``, ``tile_start``/``tile_stop``, ``s_gc``, ``ids`` and
+``n_emit``. The TPU grid bookkeeping of that module has no counterpart:
+``prepare_mixed``'s step maps, and lockstep's ``_step_maps`` with its
+``step_*``, ``chunk_first`` and ``owner`` arrays (``:116-176, 397-409``),
+parity-interleaved buffers, one-hot routing. The kernels walk each tile's
+pair range directly.
 
 The JAX package reduces the pair gradients with ``jax.ops.segment_sum``
 unless ``DEBLURGS_REDUCE=window`` selects ``_reduce_sorted``. The port
@@ -258,7 +262,11 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
 def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
                max_pairs: int) -> Staged:
     """Expansion → segmented broadcast (K3) → tile cull → stable (tile,
-    depth) sort → per-tile ranges (``pallas_blend.py:278-369``)."""
+    depth) sort → per-tile ranges (``pallas_blend.py:278-369``). Lockstep
+    composites one view: stacked views are refused as in JAX
+    (``pallas_blend.py:393-395``)."""
+    if cfg.layout == "lockstep" and cfg.n_images > 1:
+        raise NotImplementedError("batched multi-view rendering requires layout='mixed'")
     c = compact_table(cfg, means2d, conic, opacity, color, depth, rect, area, max_pairs)
     return sort_slots(cfg, broadcast_fields(c.ctable, c.gauss_c), c)
 

@@ -26,7 +26,7 @@ from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
 _ALPHA_MIN = 1.0 / 255.0
 _T_EPS = 1e-4
 _MAX_TILE_PX = 1024   # 256 threads × 4 pixels per block in the kernels
-_LANES, _WARPS = 32, 8  # K2's pixel-sum layout: pixel p = lane + 32·warp + 256·k
+_LANES, _WARPS = 32, 8  # the pixel-sum layout: pixel p = lane + 32·warp + 256·k
 
 
 def _pixel_coords(cfg, tiles: torch.Tensor, dtype=torch.float32):
@@ -163,9 +163,11 @@ def _check_kernel_inputs(name, cfg, staged) -> None:
 
 
 def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum [n, PX] over pixels in K2's order: each thread adds its four
-    pixels in turn, the warp adds its lanes by a shuffle tree, then the
-    eight warp partials are added in warp order."""
+    """Sum [n, PX] over pixels in the backward kernels' order: each thread
+    adds its pixels p = t + 256·k in turn, the warp adds its lanes by a
+    shuffle tree, then the eight warp partials are added in warp order.
+    Pixels past PX are zeros, which leave a running sum as it is, so this is
+    K2's order (four pixels a thread) and K6's (one to four) alike."""
     n, px_n = x.shape
     x = torch.nn.functional.pad(x, (0, _MAX_TILE_PX - px_n))
     x = x.reshape(n, _MAX_TILE_PX // (_LANES * _WARPS), _WARPS, _LANES)

@@ -28,7 +28,9 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu")
+SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu",
+           "forward_lockstep.cu", "backward_lockstep.cu")
+HEADERS = ("common.cuh", "lockstep.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +46,10 @@ _SIGNATURES = {
     "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                                 _i32, _i32, _vp, _vp, _vp, _vp, _vp],
     "deblurgs_reduce_sorted": [_vp, _i64, _vp, _vp, _i64, _vp, _vp],
+    "deblurgs_forward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
+                                  _vp, _vp, _vp, _vp, _vp],
+    "deblurgs_backward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
+                                   _vp, _vp, _vp, _vp, _vp],
 }
 
 
@@ -99,7 +105,7 @@ def load_library() -> KernelLibrary:
     if _LIBRARY is not None:
         return _LIBRARY
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + ("common.cuh",):
+    for src in SOURCES + HEADERS:
         with open(os.path.join(CSRC, src), "rb") as f:
             digest.update(f.read())
     tag = digest.hexdigest()[:16]

@@ -2,14 +2,16 @@
 
 Counterpart of ``deblurgs_tpu/ops/rasterize.py``:
 
-  preprocess → staging (K3 + stable sort) → compositing (K1) → image/depth
+  preprocess → staging (K3 + stable sort) → compositing → image/depth
 
-Only the kernel path is ported: ``backend="pallas"`` with
-``layout="mixed"`` (the JAX package's training default, and the default
-here). ``backend="xla"``, ``backend="oracle"`` and ``layout="lockstep"``
-(the TPU kernel K5) raise NotImplementedError until they are ported.
-``window`` and ``chunk`` are validated as in JAX and have no effect;
-``fast`` and ``need_n_contrib`` change outputs as they do there.
+Only the kernel path is ported: ``backend="pallas"``, with
+``layout="mixed"`` (K1/K2; the JAX package's training default, and the
+default here) or ``layout="lockstep"`` (K5/K6; one view, the layout of
+held-out evaluation). ``backend="xla"`` and ``backend="oracle"`` raise
+NotImplementedError until they are ported; ``render_batch`` requires
+``layout="mixed"``, as in JAX. ``window`` and ``chunk`` are validated as in
+JAX and have no effect; ``fast`` and ``need_n_contrib`` change outputs as
+they do there.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class RasterizeConfig:
     scale_modifier: float = 1.0
     need_n_contrib: bool = True  # n_contrib image is diagnostic-only
     window: int = 1             # TPU grid shape only: no effect here
-    layout: str = "mixed"       # "mixed" (ported) | "lockstep"
+    layout: str = "mixed"       # "mixed" (K1/K2) | "lockstep" (K5/K6, one view)
     tile_cull: bool = True      # exact per-pair tile cull (only active
                                 # when need_n_contrib=False)
     tight_rect: bool = True     # 1/255-ellipse AABB emission rect
@@ -85,9 +87,6 @@ def _check_ported(cfg: RasterizeConfig) -> None:
     if cfg.backend != "pallas":
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet; use backend='pallas'")
-    if cfg.layout != "mixed":
-        raise NotImplementedError(
-            f"layout={cfg.layout!r} is not ported yet; use layout='mixed'")
 
 
 def _preprocess(means3d, scales, rotations, opacities, shs, cam, cs, cfg,
@@ -164,7 +163,8 @@ def render_batch(
     """
     if cfg.backend != "pallas" or cfg.layout != "mixed":
         raise NotImplementedError(
-            "render_batch requires backend='pallas', layout='mixed'")
+            "render_batch requires backend='pallas', layout='mixed' (got layout="
+            f"{cfg.layout!r}, backend={cfg.backend!r})")
     F = cams.view.shape[0]
     P = means3d.shape[0]
     pre = _preprocess(means3d, scales, rotations, opacities, shs, cams, cs, cfg,

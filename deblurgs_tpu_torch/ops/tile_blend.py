@@ -2,9 +2,10 @@
 
 Counterpart of ``deblurgs_tpu/ops/tile_blend.py``'s fused kernel path
 (``tile_blend.py:432-497``). Forward: staging (K3 plus the sort) →
-compositing (K1) → ``image = C + T·bg`` and ``depth = D + T·z_far``.
-Backward: per-pair gradients (K2) → their reduce by compact rank (K4) →
-the scatter to original rows.
+compositing → ``image = C + T·bg`` and ``depth = D + T·z_far``.
+Backward: per-pair gradients → their reduce by compact rank (K4) → the
+scatter to original rows. ``cfg.layout`` picks the compositing kernels:
+``"mixed"`` K1/K2 (stacked views), ``"lockstep"`` K5/K6 (one view).
 """
 
 from __future__ import annotations
@@ -13,7 +14,13 @@ import dataclasses
 
 import torch
 
-from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
+
+# layout -> (forward, backward) compositing kernels
+_KERNELS = {
+    "mixed": (cuda_blend_mixed.forward_mixed, cuda_blend_mixed.backward_mixed),
+    "lockstep": (cuda_blend_lockstep.forward_lockstep, cuda_blend_lockstep.backward_lockstep),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +29,7 @@ class BlendConfig:
     package's ``BlendConfig``; ``interpret`` has no counterpart here).
 
     ``window`` and ``chunk`` only shaped the TPU grid: they are validated
-    as in JAX and have no effect. ``k_max`` belongs to the not yet ported
+    as in JAX and have no effect, on either layout. ``k_max`` belongs to the not yet ported
     ``backend="xla"`` and has no effect until it lands.
     """
 
@@ -120,8 +127,8 @@ class _BlendFused(torch.autograd.Function):
     ``_blend_fused_fwd`` / ``_blend_fused_bwd`` (``tile_blend.py:462-497``).
 
     Residuals: the staged pair list, final_T and the pre-background C and D.
-    The backward runs K2 (per-slot gradients), K4 (their reduce by compact
-    rank) and the scatter to original rows. As in JAX, the cotangent of
+    The backward runs K2 or K6 (per-slot gradients), K4 (their reduce by
+    compact rank) and the scatter to original rows. As in JAX, the cotangent of
     final_T is dropped (``_dT``); n_contrib, num_pairs and max_per_tile are
     not differentiable.
     """
@@ -130,7 +137,7 @@ class _BlendFused(torch.autograd.Function):
     def forward(ctx, cfg, means2d, conic, opacity, color, depth, rect, area, bg):
         staged = cuda_blend.sort_stage(cfg, means2d, conic, opacity, color, depth,
                                        rect, area, cfg.max_pairs)
-        C, D, T, n_con = cuda_blend_mixed.forward_mixed(cfg, staged)
+        C, D, T, n_con = _KERNELS[cfg.layout][0](cfg, staged)
         image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
         ctx.cfg = cfg
         ctx.staged = staged
@@ -148,8 +155,7 @@ class _BlendFused(torch.autograd.Function):
         else:
             d_image = _images_to_tiles(cfg, d_image)
         d_depth = torch.zeros_like(D) if d_depth is None else _images_to_tiles(cfg, d_depth)
-        pair_grads = cuda_blend_mixed.backward_mixed(cfg, ctx.staged, bg, T, d_image,
-                                                     d_depth, C, D)
+        pair_grads = _KERNELS[cfg.layout][1](cfg, ctx.staged, bg, T, d_image, d_depth, C, D)
         sums = cuda_blend.reduce_pair_grads(ctx.staged, pair_grads, ctx.n_rows)
         dbg = torch.einsum("tp,tpc->c", T, d_image)
         return (None, sums[:, 0:2], sums[:, 2:5], sums[:, 5], sums[:, 6:9], sums[:, 9],

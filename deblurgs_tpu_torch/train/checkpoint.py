@@ -6,7 +6,9 @@ TrainState` (``params/xyz``, ``aux/denom``, ``adam_g/mu/xyz``,
 ``adam_m/step/nu``, ``step``, ``rng``, ``overflow_count``, ...), the same
 keys and dtypes the JAX package writes, so a state carries across in both
 directions with its Adam moments and step counts. ``rng`` (the JAX key) is
-carried as numpy and not used.
+carried as numpy and not used. The motion-only ``cm.npz`` (reference
+``cm.pth``, ``motion.py:337-365``) holds ``rot_ctrl``, ``trans_ctrl`` and
+``nu``, as JAX's ``save_motion`` writes them.
 """
 
 from __future__ import annotations
@@ -77,3 +79,18 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 def load_checkpoint(path: str, device="cuda") -> TrainState:
     with np.load(path) as data:
         return state_from_arrays(dict(data), device=device)
+
+
+def save_motion(path: str, motion: motion_lib.MotionParams) -> None:
+    """Write the curve leaves to ``cm.npz`` (the JAX package's keys)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{k: getattr(motion, k).detach().cpu().numpy()
+                      for k in motion_lib.MotionParams._fields})
+
+
+def load_motion(path: str, device="cuda") -> motion_lib.MotionParams:
+    """Read ``cm.npz`` into a :class:`MotionParams` on ``device``."""
+    dev = resolve_device(device)
+    with np.load(path) as d:
+        return motion_lib.MotionParams(*(torch.as_tensor(np.array(d[k]), device=dev)
+                                         for k in motion_lib.MotionParams._fields))

@@ -314,11 +314,14 @@ def test_config_validation_matches_jax():
 @pytest.mark.parametrize("kw", [dict(backend="xla"), dict(backend="oracle"),
                                 dict(layout="lockstep")])
 def test_unported_paths_raise(kw):
+    """The xla and oracle backends are not ported; lockstep renders one
+    view (K5), and batched rendering refuses it as JAX does."""
     cam = make_camera(W, H)
     tc, tcs = cam.torch()
     gauss = to_torch(*make_gaussians(1, n=10))
-    with pytest.raises(NotImplementedError):
-        tras.render(*gauss, tc, tcs, torch.zeros(3), cfg=tras.RasterizeConfig(**kw))
+    fn = tras.render_batch if "layout" in kw else tras.render
+    with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
+        fn(*gauss, tc, tcs, torch.zeros(3), cfg=tras.RasterizeConfig(**kw))
 
 
 def test_blend_refuses_gradients():

@@ -201,7 +201,10 @@ class TestNoJax:
                 "import deblurgs_tpu_torch; "
                 "from deblurgs_tpu_torch import render_batch; "
                 "from deblurgs_tpu_torch.models import blur; "
-                "from deblurgs_tpu_torch import weights; print('ok')")
+                "from deblurgs_tpu_torch import weights; "
+                "import deblurgs_tpu_torch.cli.evaluate, deblurgs_tpu_torch.eval.session; "
+                "import deblurgs_tpu_torch.eval.metrics, deblurgs_tpu_torch.data.scene; "
+                "import deblurgs_tpu_torch.ops.cuda_blend_lockstep; print('ok')")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -22,7 +22,8 @@ from deblurgs_tpu_torch.core.transforms import build_covariance  # noqa: E402
 from deblurgs_tpu_torch.device import resolve_device  # noqa: E402
 from deblurgs_tpu_torch.models import motion as motion_lib  # noqa: E402
 from deblurgs_tpu_torch.models.gaussians import GaussianConfig  # noqa: E402
-from deblurgs_tpu_torch.ops import binning, cuda_blend, cuda_blend_mixed  # noqa: E402
+from deblurgs_tpu_torch.ops import binning, cuda_blend, cuda_blend_lockstep  # noqa: E402
+from deblurgs_tpu_torch.ops import cuda_blend_mixed  # noqa: E402
 from deblurgs_tpu_torch.ops import preprocess as pre_lib  # noqa: E402
 from deblurgs_tpu_torch.ops import tile_blend  # noqa: E402
 from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig  # noqa: E402
@@ -252,3 +253,66 @@ def test_train_step_on_card_matches_cpu(card):
              **{f"step {k}": v.numel() for k, v in s0.motion._asdict().items()}}
     bad = {k: (v, numel[k]) for k, v in report.items() if v > max(4, numel[k] // 1000)}
     assert not bad, f"entries off per leaf (count, size): {bad}; all: {report}"
+
+
+def _one_view(card, tile, need_n_contrib):
+    """The first sub-frame of ``_staged_inputs``' scene as one view staged
+    for the lockstep kernels, and the same list's mixed configuration."""
+    cfg, flat = _staged_inputs(card)
+    n = flat[0].shape[0] // F
+    flat = [x[:n] for x in flat]
+    kw = dict(width=W, height=H, tile_w=tile, tile_h=tile, max_pairs=1 << 16,
+              need_n_contrib=need_n_contrib)
+    lock = tile_blend.BlendConfig(layout="lockstep", **kw)
+    staged = cuda_blend.sort_stage(lock, *flat, lock.max_pairs)
+    assert int(staged.total) <= lock.max_pairs
+    return lock, tile_blend.BlendConfig(layout="mixed", **kw), staged, flat
+
+
+@pytest.mark.parametrize("tile,need_n_contrib", [(16, True), (16, False), (32, True)])
+def test_lockstep_kernels_match_plain(card, tile, need_n_contrib):
+    """K5 equals its plain version and K1 on the same list bit for bit,
+    ``n_con`` included; K6 equals its plain version slot for slot."""
+    cfg, mixed, staged, _ = _one_view(card, tile, need_n_contrib)
+    before = (cuda_blend_lockstep.forward_lockstep.launches,
+              cuda_blend_lockstep.backward_lockstep.launches)
+    got = cuda_blend_lockstep.forward_lockstep(cfg, staged)
+    args = (cfg, staged.fields, staged.tile_start, staged.tile_stop)
+    want = cuda_blend_lockstep.forward_lockstep_ref(*args)
+    k1 = cuda_blend_mixed.forward_mixed(mixed, staged)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, k1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if need_n_contrib:
+        assert int(got[3].max()) > 1
+    C, D, T, _ = got
+    dl_pix, dl_d = _cotangents(cfg)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+    pg = cuda_blend_lockstep.backward_lockstep(cfg, staged, bg, T, dl_pix, dl_d, C, D)
+    total = cuda_blend_mixed.backward_total(cfg, bg, T, dl_pix, dl_d, C, D)
+    torch.cuda.synchronize()
+    assert torch.equal(pg, cuda_blend_lockstep.backward_lockstep_ref(*args, dl_pix, dl_d, total))
+    assert torch.equal(pg, cuda_blend_lockstep.backward_lockstep(cfg, staged, bg, T, dl_pix,
+                                                                 dl_d, C, D))
+    assert (cuda_blend_lockstep.forward_lockstep.launches,
+            cuda_blend_lockstep.backward_lockstep.launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_lockstep_blend_gradients_match_plain(card):
+    cfg, _, _, flat = _one_view(card, 16, True)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+    w = torch.rand((H, W, 3), generator=torch.Generator(device="cuda").manual_seed(2),
+                   device=card)
+
+    def grads(fl):
+        with torch.enable_grad():
+            diff = [t.clone().requires_grad_(True) for t in fl[:5] + [bg.to(fl[0].device)]]
+            img, dep, *_ = tile_blend.blend_fused(cfg, *diff[:5], fl[5], fl[6], diff[5])
+            loss = (img * w.to(img.device)).sum() + 0.1 * dep.sum()
+            return torch.autograd.grad(loss, diff)
+
+    a, b = grads(flat), grads(flat)
+    plain = grads([x.cpu() for x in flat])
+    for x, y, z in zip(a, b, plain):
+        assert torch.equal(x, y) and bool(torch.isfinite(x).all())
+        assert_scaled_close(x.cpu(), z, atol=1e-4)

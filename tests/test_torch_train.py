@@ -176,19 +176,21 @@ def _states(leaves, key):
             tstep.init_state(tp, tm, ta, rng=np.asarray(jkey)))
 
 
-def _statics(ocfg_kw, n_sub, cs, batched=True, B=1, random_sample=False, white=False):
+def _statics(ocfg_kw, n_sub, cs, batched=True, B=1, random_sample=False, white=False,
+             layout="mixed"):
+    rkw = dict(RKW, layout=layout)
     common = dict(sh_degree=1, n_sub=n_sub, tone_mapping="identity", spatial_lr_scale=2.0,
                   random_sample=random_sample, white_background=white, batched_render=batched,
                   cams_per_step=B)
     js = jstep.TrainStatics(
         gcfg=jgm.GaussianConfig(sh_degree=1),
         mcfg=jmm.MotionConfig(curve_order=3, n_subframes=3, curve_random_sample=random_sample),
-        ocfg=JOptimizationConfig(**ocfg_kw), rcfg=jras.RasterizeConfig(interpret=True, **RKW),
+        ocfg=JOptimizationConfig(**ocfg_kw), rcfg=jras.RasterizeConfig(interpret=True, **rkw),
         cs=jcam.CameraStatic(**cs), **common)
     ts = tstep.TrainStatics(
         gcfg=tgm.GaussianConfig(sh_degree=1),
         mcfg=tmm.MotionConfig(curve_order=3, n_subframes=3, curve_random_sample=random_sample),
-        ocfg=OptimizationConfig(**ocfg_kw), rcfg=tras.RasterizeConfig(**RKW),
+        ocfg=OptimizationConfig(**ocfg_kw), rcfg=tras.RasterizeConfig(**rkw),
         cs=tcam.CameraStatic(**cs), **common)
     return js, ts
 
@@ -220,9 +222,9 @@ EVENTS = dict(iterations=5, curve_start_iter=2, curve_end_iter=100, densify_from
 
 
 def _run_both(ocfg_kw, n_sub, n_steps, batched=True, B=1, random_sample=True, white=False,
-              seed=40):
+              seed=40, layout="mixed"):
     leaves, cs, proj, gts = _scene(seed)
-    js, ts = _statics(ocfg_kw, n_sub, cs, batched, B, random_sample, white)
+    js, ts = _statics(ocfg_kw, n_sub, cs, batched, B, random_sample, white, layout)
     jstate, tstate = _states(leaves, seed)
     fn = jstep.make_train_step(js)
     history = []
@@ -278,6 +280,19 @@ def test_cams_per_step_two_matches_jax():
     jstate, tstate, history = _run_both(dict(EVENTS, densify_from_iter=100), 3, 2, B=2)
     for jmet, tmet in history:
         assert_close(tmet.loss, jmet.loss, atol=1e-6, rtol=1e-4, name="loss")
+    _assert_states_close(jstate, tstate, atol=2e-4)
+
+
+def test_lockstep_train_steps_match_jax():
+    """``layout="lockstep"`` with ``batched_render=False``: each sub-frame
+    renders through K5 and backpropagates through K6 and K4
+    (``train/step.py:144-156`` of the JAX package). Two steps, three
+    sub-frames, JAX's draws injected."""
+    jstate, tstate, history = _run_both(dict(EVENTS, densify_from_iter=100), 3, 2,
+                                        batched=False, layout="lockstep")
+    for jmet, tmet in history:
+        assert_close(tmet.loss, jmet.loss, atol=1e-6, rtol=1e-4, name="loss")
+        assert int(tmet.num_pairs) == int(jmet.num_pairs)
     _assert_states_close(jstate, tstate, atol=2e-4)
 
 
