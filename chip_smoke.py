@@ -25,24 +25,25 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               observation and its sharp mid-trajectory view, kernel path
               against plain path;
 6. train_parity  the backward kernels on the parity scene: K2 against its
-              plain version slot for slot (default and ``fast``), K4 against
-              its plain version, ``blend_fused``'s autograd gradients with the
-              kernels against the same gradients through the plain versions,
-              and two backward calls compared bitwise;
+              plain version bit for bit (default and ``fast``), K4 on the main
+              path (the staging's runs, sums to original rows) and by rank
+              array against float64 sums, ``blend_fused``'s autograd gradients
+              with the kernels against the same gradients through the plain
+              versions, and two calls of each compared bitwise;
 7. train      one DeblurGS train step at full width (1920×1080, 100k
               Gaussians seeded from ``bench.py``'s point-cloud distribution,
               SH 2, F = 21, order-9 se3 curve, tile 32, batched render, tile
               cull on, curve on from step 1, step 100, densify and reset
               pushed out): two warm-up steps and five timed steps with the
               launch counters zeroed just before and read just after, a
-              breakdown (forward stages, losses, K2, K4 + scatter, the autograd
-              rest, Adam and stats), peak memory and the device busy share;
-              K2 against its plain version on 64 sampled tiles and K4 over all
-              slots, with the step's own image cotangent;
+              breakdown (forward stages, losses, K2, K4, the autograd rest,
+              Adam and stats), peak memory and the device busy share; K2
+              against its plain version bit for bit on 64 sampled tiles and
+              K4 over all slots, with the step's own image cotangent;
 8. train_trained  ``runs/r5_jointb_state.npz`` loaded whole (Adam moments
               included) at 256×256, F = 21: one step whose step number fires
-              densify_and_prune, and K2/K4 against their plain versions on
-              its deep tile lists;
+              densify_and_prune, and K2 (bit for bit, every tile) and K4
+              against their plain versions on its deep tile lists;
 9. train_lockstep  ``train_step`` with ``layout="lockstep"`` and
               ``batched_render=False`` on the parity scene: two steps through
               K5, K6 and K4 per sub-frame, the first against the plain path;
@@ -60,8 +61,11 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               versions on 64 tiles;
 12. yardstick each kernel timed beside its plain version, its bound and, for
               K3 and K4, the one PyTorch call that computes the same function;
-              K5 and K6 at the eval phase's shapes, with K1 and K2 on the
-              same lists.
+              at the train step's lists K2 with ptxas's registers and its
+              pair loop's SASS count, K1's bound there, and K2's and K4's
+              times before their redesign (and K2's after each design move,
+              as recorded); K5 and K6
+              at the eval phase's shapes, with K1 and K2 on the same lists.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -95,6 +99,17 @@ EVAL_SIZE = (1920, 1080, 100_000)
 EVAL_CAMERAS, EVAL_HOLD = 8, 4   # views 000 and 004 held out (llffhold 4)
 POSE_TIMED_ITERS = 10         # iterations a view in each timed optimize_test_poses
 GRAD_ATOL = 2e-5              # |got - want| / max|want| for gradients
+# the train step's K2 and K4 (with its sort and scatter) before their
+# redesign, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+K2_PREVIOUS_MS, K4_PREVIOUS_MS = 49.77, 14.14
+# K2 on the same card after each design move of its redesign, as this
+# script's yardstick timed them while the moves were kernel variants (they
+# were folded into the one design since; PERF.md's Findings, PR 4)
+K2_DESIGN_MOVES_MS = {"patches, moments, fused total, slot-major rows": 35.88,
+                      "+ warp cull": 41.57, "+ per-warp exit": 42.03,
+                      "+ composited-pair record": 41.33, "+ reduce-scatter": 39.48,
+                      "+ three blocks an SM": 33.63, "+ branch-free pixels": 33.31,
+                      "without cull and record (the design)": 32.06}
 
 
 def emit(phase: str, **fields) -> None:
@@ -152,6 +167,68 @@ def check_k3(torch, where: str, fslot, c) -> float:
     return err
 
 
+def ptxas_report(log: str, kernel: str) -> list:
+    """Registers, shared memory and spills ptxas reported for each
+    instantiation of ``kernel`` in the build log."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+            spill = {}
+        elif entry and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            spill = {kind: int(n) for n, kind in nums}
+        elif entry and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append({"entry": entry, "registers": int(regs.group(1)) if regs else None,
+                        "smem_bytes": int(smem.group(1)) if smem else 0,
+                        "spill_stores": spill.get("stores"), "spill_loads": spill.get("loads")})
+            entry = None
+    return out
+
+
+def sass_pair_loop(torch) -> dict:
+    """Instruction counts of K2's pair loop (the default, not ``fast``),
+    from ``cuobjdump -sass`` of its object in ``build/``: the innermost loop
+    around the staged fields' first 16 B shared load, split at its first
+    shuffle into the pixels' part and the reduction's."""
+    import glob
+    import re
+    import shutil
+
+    from deblurgs_tpu_torch.ops import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    objs = glob.glob(os.path.join(kernels.BUILD, "backward_mixed_*.o"))
+    if not objs or not os.path.exists(tool):
+        return {"not_measured": "no cuobjdump or no object"}
+    sass = subprocess.run([tool, "-sass", max(objs, key=os.path.getmtime)],
+                          capture_output=True, text=True, timeout=120).stdout
+    funcs = dict(re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S))
+    body = next(b for name, b in funcs.items() if "backward_mixed_kernelILb0E" in name)
+    ins = [(int(a, 16), op) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
+    lds = next(a for a, op in ins if op.startswith("LDS.128"))
+    back = [(int(t, 16), a) for a, t in
+            ((int(a, 16), t) for a, t in re.findall(
+                r"/\*([0-9a-f]{4,})\*/[^\n]*?BRA (?:!?U?P\d, )?0x([0-9a-f]+)", body))
+            if int(t, 16) <= lds < a]
+    top, end = max(back)
+    loop = [(a, op) for a, op in ins if top <= a <= end]
+    shfl = next(a for a, op in loop if op.startswith("SHFL"))
+    pixels = [op.split(".")[0] for a, op in loop if a < shfl]
+    hist = {}
+    for op in pixels:
+        hist[op] = hist.get(op, 0) + 1
+    return {"function_instructions": len(ins),
+            "pair_loop_instructions": len(loop), "pixels_part": len(pixels),
+            "reduction_part": len(loop) - len(pixels),
+            "pixels_part_ops": dict(sorted(hist.items(), key=lambda kv: -kv[1])[:8])}
+
+
 def scaled_err(got, want) -> float:
     """max |got - want| / max |want|."""
     return max_err(got, want) / (float(want.abs().max()) or 1.0)
@@ -172,8 +249,8 @@ def tile_slots(torch, staged, tiles):
 
 def check_k2(torch, where: str, bcfg, staged, bg, T, dl_pix, dl_d, C, D, got, tiles=None):
     """K2's per-slot gradients against its plain version (on ``tiles`` or
-    all), row by row, scaled by the row's max; rows 10-15 must be zero.
-    Returns (largest scaled error, largest absolute error)."""
+    all): rows 0-9 bit for bit (the warp cull must change nothing), rows
+    10-15 zero. Returns (largest scaled error, largest absolute error)."""
     from deblurgs_tpu_torch.ops import cuda_blend_mixed as cbm
 
     total = cbm.backward_total(bcfg, bg, T, dl_pix, dl_d, C, D)
@@ -184,21 +261,49 @@ def check_k2(torch, where: str, bcfg, staged, bg, T, dl_pix, dl_d, C, D, got, ti
         got, want = got[:, slots], want[:, slots]
     if not bool((got[10:] == 0).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"K2 {where}: rows 10-15 not zero or non-finite output")
+    if not torch.equal(got[:10], want[:10]):
+        raise AssertionError(f"K2 {where}: differs from the plain version "
+                             f"(max |diff| {max_err(got, want):.3e})")
     return (max(check_scaled(f"K2 {where} row {r}", got[r], want[r]) for r in range(10)),
             max_err(got, want))
 
 
-def check_k4(torch, where: str, pair_grads, s_gc, P: int):
-    """K4 against its plain version (float64 segment sum), column by column:
-    (largest scaled error, largest absolute error)."""
+def rows_by_rank_ref(torch, staged, pair_grads, P: int):
+    """The per-Gaussian sums without the staging's runs: the float64 segment
+    sum by sorted rank ``s_gc`` (K4's plain version by rank array), then
+    the scatter to original rows through ``ids`` on the emitting ranks."""
     from deblurgs_tpu_torch.ops import cuda_blend
 
-    got = cuda_blend.reduce_sorted(pair_grads, s_gc, P)
-    want = cuda_blend.reduce_sorted_ref(pair_grads, s_gc, P)
-    if not bool((got[:, 10:] == 0).all()):
-        raise AssertionError(f"K4 {where}: columns 10-15 not zero")
-    return (max(check_scaled(f"K4 {where} col {c}", got[:, c], want[:, c]) for c in range(10)),
-            max_err(got, want))
+    sums = cuda_blend.reduce_sorted_ref(pair_grads, staged.s_gc, P)
+    ids_u = torch.where(torch.arange(P, device=sums.device) < staged.n_emit, staged.ids, P)
+    out = torch.zeros((P + 1, 16), dtype=sums.dtype, device=sums.device)
+    out[ids_u] = sums
+    return out[:P]
+
+
+def check_k4(torch, where: str, staged, pair_grads, P: int):
+    """K4 on the main path (``reduce_pair_grads``: the staging's runs, sums
+    written to original rows) against the float64 sums by rank array
+    scattered to rows, and K4 by rank array (``reduce_sorted``) against its
+    float64 plain version, column by column; two calls of each bitwise
+    equal. Returns (largest scaled error, largest absolute error)."""
+    from deblurgs_tpu_torch.ops import cuda_blend
+
+    cases = ((lambda: cuda_blend.reduce_pair_grads(staged, pair_grads, P),
+              rows_by_rank_ref(torch, staged, pair_grads, P), "main path"),
+             (lambda: cuda_blend.reduce_sorted(pair_grads, staged.s_gc, P),
+              cuda_blend.reduce_sorted_ref(pair_grads, staged.s_gc, P), "by rank array"))
+    scaled, absolute = 0.0, 0.0
+    for run, want, path in cases:
+        got = run()
+        if not bool((got[:, 10:] == 0).all()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K4 {where} {path}: columns 10-15 not zero or non-finite")
+        if not torch.equal(got, run()):
+            raise AssertionError(f"K4 {where} {path}: two calls differ")
+        scaled = max([scaled] + [check_scaled(f"K4 {where} {path} col {c}", got[:, c],
+                                              want[:, c]) for c in range(10)])
+        absolute = max(absolute, max_err(got, want))
+    return scaled, absolute
 
 
 def make_scene(n: int, sh_degree: int, rng: np.random.Generator, device):
@@ -278,16 +383,18 @@ def kernel_blend(bcfg, flat, bg):
     return tile_blend.compose(bcfg, *cuda_blend_mixed.forward_mixed(bcfg, st), bg)
 
 
-def device_profile(torch, fn, top: int = 12) -> dict:
-    """One call of ``fn`` under torch.profiler: the device kernels that take
-    the most time, and the device's busy share of the call's wall time."""
+def device_profile(torch, fn, top: int = 12, calls: int = 1) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: the device kernels
+    that take the most time, every sort kernel (``sorts``), and the
+    device's busy share of the calls' wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -304,7 +411,9 @@ def device_profile(torch, fn, top: int = 12) -> dict:
     return {"wall_us": round(wall_us, 1), "device_busy_us": round(busy_us, 1),
             "busy_share": round(busy_us / wall_us, 4) if wall_us else None,
             "top": [{"kernel": k[:90], "us": round(us, 1), "calls": n}
-                    for us, k, n in rows[:top]]}
+                    for us, k, n in rows[:top]],
+            "sorts": [{"kernel": k[:200], "us": round(us, 1), "calls": n}
+                      for us, k, n in rows if "Sort" in k]}
 
 
 def zero_counts() -> None:
@@ -587,12 +696,7 @@ def plain_blend_grads(torch, bcfg, flat, bg, d_img, d_dep):
     dl_d = tile_blend._images_to_tiles(bcfg, d_dep)
     total = cbm.backward_total(bcfg, bg, T, dl_pix, dl_d, C, D)
     pg = cbm.backward_ref(bcfg, st.fields, st.tile_start, st.tile_stop, dl_pix, dl_d, total)
-    P = flat[0].shape[0]
-    sums = cuda_blend.reduce_sorted_ref(pg, st.s_gc, P)
-    ids_u = torch.where(torch.arange(P, device=pg.device) < st.n_emit, st.ids, P)
-    out = torch.zeros((P + 1, 16), dtype=sums.dtype, device=sums.device)
-    out[ids_u] = sums
-    out = out[:P]
+    out = rows_by_rank_ref(torch, st, pg, flat[0].shape[0])
     return (out[:, 0:2], out[:, 2:5], out[:, 5], out[:, 6:9], out[:, 9],
             torch.einsum("tp,tpc->c", T, dl_pix))
 
@@ -627,13 +731,10 @@ def phase_train_parity(torch, dev):
         pg = cuda_blend_mixed.backward_mixed(bcfg, st, bg, T, dl_pix, dl_d, C, D)
         err_k2 = check_k2(torch, f"parity {name}", bcfg, st, bg, T, dl_pix, dl_d, C, D, pg)
         P = flat[0].shape[0]
-        err_k4 = check_k4(torch, f"parity {name}", pg, st.s_gc, P)
-        same = (torch.equal(pg, cuda_blend_mixed.backward_mixed(bcfg, st, bg, T, dl_pix, dl_d,
-                                                                C, D))
-                and torch.equal(cuda_blend.reduce_sorted(pg, st.s_gc, P),
-                                cuda_blend.reduce_sorted(pg, st.s_gc, P)))
-        if not same:
-            raise AssertionError(f"K2/K4 {name}: two calls differ")
+        err_k4 = check_k4(torch, f"parity {name}", st, pg, P)
+        if not torch.equal(pg, cuda_blend_mixed.backward_mixed(bcfg, st, bg, T, dl_pix, dl_d,
+                                                               C, D)):
+            raise AssertionError(f"K2 {name}: two calls differ")
         # blend_fused's autograd gradients (kernels) against the plain path
         d_img = torch.randn((F, H, W, 3), generator=gen, device=dev)
         d_dep = 0.05 * torch.randn((F, H, W), generator=gen, device=dev)
@@ -797,7 +898,7 @@ def phase_train(torch, dev):
     kargs = (bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
     k2_ms = cuda_ms(lambda: cuda_blend_mixed.backward_mixed(bcfg, staged, *kargs), 5)
     pg = cuda_blend_mixed.backward_mixed(bcfg, staged, *kargs)
-    k4_scatter_ms = cuda_ms(lambda: cuda_blend.reduce_pair_grads(staged, pg, k["P"]), 5)
+    k4_ms = cuda_ms(lambda: cuda_blend.reduce_pair_grads(staged, pg, k["P"]), 5)
     def make_flat():
         from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
 
@@ -811,15 +912,15 @@ def phase_train(torch, dev):
                  "forward_stages_no_grad": stages,
                  "losses_and_rest": round(acc["forward"] - sum(stages.values()), 4),
                  "backward": round(acc["backward"], 4), "K2": round(k2_ms, 4),
-                 "K4_and_scatter": round(k4_scatter_ms, 4),
-                 "autograd_rest": round(acc["backward"] - k2_ms - k4_scatter_ms, 4),
+                 "K4": round(k4_ms, 4),
+                 "autograd_rest": round(acc["backward"] - k2_ms - k4_ms, 4),
                  "adam_and_stats": round(acc["apply"], 4)}
 
     # ---- the kernels against their plain versions at these shapes ----
     tiles = torch.from_numpy(np.random.default_rng(SEED + 7).choice(
         bcfg.total_tiles, 64, replace=False)).to(dev)
     err_k2 = check_k2(torch, "train (64 tiles)", bcfg, staged, *kargs, pg, tiles=tiles)
-    err_k4 = check_k4(torch, "train", pg, staged.s_gc, k["P"])
+    err_k4 = check_k4(torch, "train", staged, pg, k["P"])
     profile = device_profile(torch, lambda: step_lib.train_step(state, gt, 0, proj, st,
                                                                 generator=gen))
     emit("train", width=W, height=H, gaussians=N, sh_degree=2, subframes=F, tile=32,
@@ -914,7 +1015,7 @@ def phase_train_trained(torch, dev):
     kargs = (bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
     pg = cuda_blend_mixed.backward_mixed(k["bcfg"], k["staged"], *kargs)
     err_k2 = check_k2(torch, "trained", k["bcfg"], k["staged"], *kargs, pg)
-    err_k4 = check_k4(torch, "trained", pg, k["staged"].s_gc, k["P"])
+    err_k4 = check_k4(torch, "trained", k["staged"], pg, k["P"])
     emit("train_trained", state=os.path.relpath(path, REPO), size=[W, H], subframes=F,
          step=step, loss=float(metrics.loss), pairs=int(metrics.num_pairs),
          max_per_tile=int(metrics.max_per_tile), active_before=active_before,
@@ -929,7 +1030,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     at the slice's shapes, K2 and K4 at the train step's (``tr``); returns
     the kernels line (``*_err``: each kernel's largest absolute error
     against its plain version over the earlier phases)."""
-    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, kernels
 
     bcfg, st, c = sl["bcfg"], sl["staged"], sl["compact"]
     gauss_c = c.gauss_c.to(torch.int32)
@@ -977,6 +1078,9 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     st2 = st2._replace(tile_start=st2.tile_start.to(torch.int32),
                        tile_stop=st2.tile_stop.to(torch.int32))
     k2_ms = cuda_ms(lambda: cuda_blend_mixed.backward_mixed(bcfg2, st2, *kargs), 10)
+    pg = cuda_blend_mixed.backward_mixed(bcfg2, st2, *kargs)
+    # the pass K2 does in its prologue, timed as a wrapper would run it apart
+    total_ms = cuda_ms(lambda: cuda_blend_mixed.backward_total(bcfg2, *kargs), 5)
     total = cuda_blend_mixed.backward_total(bcfg2, *kargs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -990,17 +1094,27 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     kept2 = int((st2.tile_stop - st2.tile_start).sum())
     max_pairs2 = st2.fields.shape[1]
     px2 = bcfg2.total_tiles * bcfg2.tile_px
-    # out: rows 0-9 of each staged slot, what K4 reads; the zero fill of rows
-    # 10-15 and of the unstaged tail is a cost of the [16, max_pairs] layout
+    # out: rows 0-9 of each staged slot, what K4 reads; the zero fill of
+    # columns 10-15 and of the unstaged tail is a cost of the [max_pairs, 16]
+    # layout
     k2_bytes = 40 * kept2 + 8 * bcfg2.total_tiles + 20 * px2 + 40 * kept2
     k2_fill = 64 * max_pairs2 - 40 * kept2
     k2_byte_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2_op_ms = EVAL_OPS * evals2 / F32_OPS_PER_S * 1e3
+    k2_ptxas = ptxas_report(kernels.load_library().ptxas_log, "backward_mixed_kernel")
+    k2_sass = sass_pair_loop(torch)
 
-    pg = tr["pg"]
+    # K1 on the same lists (its bound on the train lists)
+    k1_train_ms = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(bcfg2, st2), 10)
+    k1_train_bytes = 40 * kept2 + 8 * bcfg2.total_tiles + px2 * (12 + 4 + 4)
+    k1_train_bound = max(k1_train_bytes / HBM_BYTES_PER_S * 1e3, k2_op_ms)
+
+    # K4 on the main path (the staging's runs, sums to original rows) and by
+    # rank array (the wrapper's sort), the plain version and index_add_
     s_gc = st2.s_gc
-    k4_ms = cuda_ms(lambda: cuda_blend.reduce_sorted(pg, s_gc, P), 10)
-    k4_plain = cuda_ms(lambda: cuda_blend.reduce_sorted_ref(pg, s_gc, P), 3)
+    k4_ms = cuda_ms(lambda: cuda_blend.reduce_pair_grads(st2, pg, P), 10)
+    k4_rank_ms = cuda_ms(lambda: cuda_blend.reduce_sorted(pg, s_gc, P), 10)
+    k4_plain = cuda_ms(lambda: cuda_blend.reduce_pair_grads_ref(st2, pg, P), 3)
     seg = torch.clamp(s_gc.to(torch.int64), max=P)
     rows = pg[:10].T.contiguous()
 
@@ -1008,16 +1122,36 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
         return torch.zeros((P + 1, 10), device=pg.device).index_add_(0, seg, rows)
 
     k4_lib = cuda_ms(library, 10)
+    # what each K4 path launches over five calls: the main path no sort, the
+    # rank-array path (the sort-based reduce, without a scatter) the
+    # wrapper's sort (a profile of one ~4 ms call can come back with no
+    # device activity recorded)
+    k4_profile = device_profile(torch, lambda: cuda_blend.reduce_pair_grads(st2, pg, P), top=6,
+                                calls=5)
+    k4_rank_profile = device_profile(torch, lambda: cuda_blend.reduce_sorted(pg, s_gc, P),
+                                     top=6, calls=5)
     k4_lib_err = max_err(library()[:P], cuda_blend.reduce_sorted(pg, s_gc, P)[:, :10])
-    k4_bytes = 40 * kept2 + 4 * max_pairs2 + 64 * P
+    # run slots: 4 B of sorted position + the 40 B of gradients K4 sums;
+    # ranks: 8 B of run bounds, 4 B of id, a 64 B output row (zeroed, then
+    # written)
+    run_slots = int(st2.seg[-1] - st2.seg[0])
+    k4_bytes = (4 + 40) * run_slots + (8 + 4 + 64) * P
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
     emit("yardstick_backward",
-         K2=dict(ms=k2_ms, plain_ms=k2_plain, staged_pairs=kept2, evaluations=evals2,
-                 bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms,
-                 layout_fill_bytes=k2_fill),
-         K4=dict(ms=k4_ms, plain_ms=k4_plain, library_ms=k4_lib,
+         K2=dict(ms=k2_ms, previous_ms=K2_PREVIOUS_MS, plain_ms=k2_plain,
+                 design_moves_recorded_ms=K2_DESIGN_MOVES_MS, total_pass_ms=total_ms, staged_pairs=kept2,
+                 evaluations=evals2, bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms,
+                 layout_fill_bytes=k2_fill, ptxas=k2_ptxas, sass=k2_sass),
+         K1_train_lists=dict(ms=k1_train_ms, bytes=k1_train_bytes, evaluations=evals2,
+                             bound_ms=k1_train_bound,
+                             bound_by="operations" if k2_op_ms >= k1_train_bytes
+                             / HBM_BYTES_PER_S * 1e3 else "bytes"),
+         K4=dict(ms=k4_ms, previous_ms=K4_PREVIOUS_MS, by_rank_array_ms=k4_rank_ms,
+                 plain_ms=k4_plain, library_ms=k4_lib,
                  library_call="torch.zeros((P+1, 10)).index_add_(0, rank, grads[:10].T)",
-                 library_max_abs_err=k4_lib_err, ranks=P, bytes=k4_bytes, bound_ms=k4_bound))
+                 library_max_abs_err=k4_lib_err, ranks=P, run_slots=run_slots,
+                 bytes=k4_bytes, bound_ms=k4_bound, profile=k4_profile,
+                 by_rank_array_profile=k4_rank_profile))
     launches = sl["launches"]
     return [
         {"name": "K3 broadcast_fields", "route": "cuda",

@@ -26,8 +26,9 @@
 // The sums go to the pair's own slot in a fixed order, with no atomics: a
 // thread adds its PPT pixels in turn, the warp adds its lanes by a shuffle
 // tree, then the eight warp partials are added in warp order. A warp none of
-// whose pixels composite the pair skips its shuffles. Rows 10-15 are written
-// as zero. Blocks past the last tile zero the slots no tile range covers (the
+// whose pixels composite the pair skips its shuffles. The output is
+// slot-major [max_pairs, 16] (K2's layout, the one K4 reads), rows 10-15 of
+// each slot written as zero. Blocks past the last tile zero the slots no tile range covers (the
 // sentinel tail), and a block that exits early zeroes the rest of its range,
 // so K4 never reads uninitialised memory. Two calls give bitwise-equal output.
 //
@@ -63,8 +64,7 @@ __global__ void __launch_bounds__(THREADS) backward_lockstep_kernel(
     const int64_t tail0 = tile_stop[num_tiles - 1];
     const int64_t stride = static_cast<int64_t>(gridDim.x - num_tiles) * THREADS;
     const int64_t first = static_cast<int64_t>(blockIdx.x - num_tiles) * THREADS + threadIdx.x;
-    for (int f = 0; f < NFIELD; ++f)
-      for (int64_t s = tail0 + first; s < max_pairs; s += stride) out[f * max_pairs + s] = 0.0f;
+    for (int64_t e = tail0 * NFIELD + first; e < max_pairs * NFIELD; e += stride) out[e] = 0.0f;
     return;
   }
 
@@ -170,29 +170,30 @@ __global__ void __launch_bounds__(THREADS) backward_lockstep_kernel(
       }
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < NFIELD * BATCH; idx += THREADS) {
-      const int row = idx / BATCH;
-      const int i = idx % BATCH;
-      if (i >= n) continue;
+    // slot-major rows: consecutive threads write consecutive columns
+    for (int idx = threadIdx.x; idx < NFIELD * n; idx += THREADS) {
+      const int row = idx % NFIELD;
+      const int i = idx / NFIELD;
       float v = 0.0f;
       if (row < NGRAD) {
         v = s_part[0][row][i];
 #pragma unroll
         for (int w = 1; w < WARPS; ++w) v = v + s_part[w][row][i];
       }
-      out[row * max_pairs + base + i] = v;
+      out[static_cast<int64_t>(base + i) * NFIELD + row] = v;
     }
   }
   // early exit: the pairs after the block froze get zero gradients
-  for (int f = 0; f < NFIELD; ++f)
-    for (int s = base + threadIdx.x; s < stop; s += THREADS) out[f * max_pairs + s] = 0.0f;
+  for (int64_t e = static_cast<int64_t>(base) * NFIELD + threadIdx.x;
+       e < static_cast<int64_t>(stop) * NFIELD; e += THREADS)
+    out[e] = 0.0f;
 }
 
 }  // namespace
 
 // fields [16, max_pairs] f32; tile_start/tile_stop [num_tiles] i32 (one view);
 // dl_pix [num_tiles, px, 3], dl_depth and total [num_tiles, px] f32; out
-// [16, max_pairs] f32, every slot written. Needs 0 < tile_w * tile_h <= 1024.
+// [max_pairs, 16] f32, every slot written. Needs 0 < tile_w * tile_h <= 1024.
 extern "C" int deblurgs_backward_lockstep(const void* fields, int64_t max_pairs,
                                           const void* tile_start, const void* tile_stop,
                                           int num_tiles, int tiles_x, int tile_w, int tile_h,

@@ -7,7 +7,8 @@ Counterpart of ``deblurgs_tpu/ops/pallas_blend.py``: ``broadcast_fields``
 with ``reduce_pair_grads`` (``:929-948``). :func:`sort_stage` yields what
 every compositing kernel reads, K5/K6 (``layout="lockstep"``) as K1/K2:
 the sorted ``fields``, ``tile_start``/``tile_stop``, ``s_gc``, ``ids`` and
-``n_emit``. The TPU grid bookkeeping of that module has no counterpart:
+``n_emit``, and for K4 the sort's inverse and the rank runs (``inv``,
+``seg``). The TPU grid bookkeeping of that module has no counterpart:
 ``prepare_mixed``'s step maps, and lockstep's ``_step_maps`` with its
 ``step_*``, ``chunk_first`` and ``owner`` arrays (``:116-176, 397-409``),
 parity-interleaved buffers, one-hot routing. The kernels walk each tile's
@@ -109,6 +110,9 @@ class Staged(NamedTuple):
     tile_stop: torch.Tensor     # [total_tiles] one past its last slot
     total: torch.Tensor         # [] pairs emitted (> max_pairs on overflow)
     max_per_tile: torch.Tensor  # [] longest tile list
+    # appended by the port (JAX's tuple ends above): K4's runs
+    inv: torch.Tensor | None = None  # [max_pairs] i32 sorted position of each pre-sort slot
+    seg: torch.Tensor | None = None  # [P + 1] i32 rank r's pre-sort slots: [seg[r], seg[r+1])
 
 
 def _tile_visible(cfg, fslot: torch.Tensor, tcx: torch.Tensor,
@@ -168,6 +172,7 @@ class Compact(NamedTuple):
     local: torch.Tensor    # [max_pairs] offset within the owner's rect
     total: torch.Tensor    # [] pairs emitted (> max_pairs on overflow)
     n_emit: torch.Tensor   # [] emitting-Gaussian count
+    seg: torch.Tensor      # [P + 1] i32 run bounds of each rank's slots (Staged.seg)
 
 
 def compact_table(cfg, means2d, conic, opacity, color, depth, rect, area,
@@ -184,6 +189,14 @@ def compact_table(cfg, means2d, conic, opacity, color, depth, rect, area,
     p_img = P // cfg.n_images
     gauss_c, ids, valid, local, total = binning_lib.expand_compact(area, max_pairs)
     n_emit = torch.sum((area > 0).to(torch.int64))
+    # rank r owns the pre-sort slots from its Gaussian's run start to the
+    # next rank's, cut at min(total, max_pairs); the padding ranks past the
+    # emitters (which repeat the last id) get empty runs
+    area64 = area.to(torch.int64)
+    cap = torch.clamp(total, max=max_pairs)
+    rank = torch.arange(P, device=dev)
+    run0 = torch.minimum((torch.cumsum(area64, 0) - area64)[ids], cap)
+    seg = torch.cat([torch.where(rank < n_emit, run0, cap), cap.reshape(1)]).to(torch.int32)
 
     f32 = torch.float32
     x0f = rect[:, 0].to(f32)
@@ -199,13 +212,14 @@ def compact_table(cfg, means2d, conic, opacity, color, depth, rect, area,
         dim=-1,
     )
     return Compact(ctable=table[ids], gauss_c=gauss_c, ids=ids, valid=valid,
-                   local=local, total=total, n_emit=n_emit)
+                   local=local, total=total, n_emit=n_emit, seg=seg)
 
 
 def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     """Staging, second half (``pallas_blend.py:314-369``): per-slot tile id
     → exact tile cull → stable (tile, depth) sort → per-tile ranges, from
-    the slot-space rows ``fslot`` that K3 broadcast."""
+    the slot-space rows ``fslot`` that K3 broadcast. The sort's inverse
+    (``inv``) and ``c.seg`` go with the result for K4."""
     dev = fslot.device
     num_tiles = cfg.num_tiles
     total_tiles = cfg.total_tiles
@@ -237,6 +251,8 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     gc_sent = torch.where(valid, gauss_c, P)
 
     order = torch.sort((tile << 32) | _depth_order_bits(depth_key), stable=True).indices
+    inv = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    inv[order] = torch.arange(max_pairs, dtype=torch.int32, device=dev)
     s_tile = tile[order]
     s_depth = depth_key[order]
     s_gc = gc_sent[order]
@@ -256,7 +272,7 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     max_per_tile = torch.max(tile_stop - tile_start)
     return Staged(fields=fields, s_tile=s_tile, s_gc=s_gc, ids=c.ids, n_emit=c.n_emit,
                   tile_start=tile_start, tile_stop=tile_stop, total=c.total,
-                  max_per_tile=max_per_tile)
+                  max_per_tile=max_per_tile, inv=inv, seg=c.seg)
 
 
 def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
@@ -277,9 +293,9 @@ def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
 
 
 def reduce_sorted_ref(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch.Tensor:
-    """Plain version of K4: the segment sum of rows 0-9 of ``pair_grads``
-    [16, max_pairs] by compact rank ``s_gc`` (rank ``P`` is dropped), into
-    [P, 16] with columns 10-15 zero. Sums in float64."""
+    """Plain version of K4 by rank array: the segment sum of rows 0-9 of
+    ``pair_grads`` [16, max_pairs] by compact rank ``s_gc`` (rank ``P`` is
+    dropped), into [P, 16] with columns 10-15 zero. Sums in float64."""
     seg = torch.clamp(s_gc.to(torch.int64), max=P)
     sums = torch.zeros((P + 1, 10), dtype=torch.float64, device=pair_grads.device)
     sums.index_add_(0, seg, pair_grads[:10].T.to(torch.float64))
@@ -288,55 +304,103 @@ def reduce_sorted_ref(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> t
     return out
 
 
+def _slot_rows(name: str, pair_grads: torch.Tensor) -> torch.Tensor:
+    """[16, max_pairs] float32 on a CUDA device → its slot-major rows
+    [max_pairs, 16], 16 B aligned: a view for K2's and K6's output (the
+    ``.T`` of slot-major rows), a copy for a contiguous [16, N] tensor."""
+    if pair_grads.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {pair_grads.device}")
+    if (pair_grads.dtype != torch.float32 or pair_grads.dim() != 2
+            or pair_grads.shape[0] != NFIELD):
+        raise ValueError(f"{name}: pair_grads must be [{NFIELD}, max_pairs] float32, "
+                         f"got {tuple(pair_grads.shape)} {pair_grads.dtype}")
+    if pair_grads.shape[1] >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel indexes slots with int32")
+    rows = pair_grads.T.contiguous()
+    return rows if rows.data_ptr() % 16 == 0 else rows.clone()
+
+
+def _launch_reduce(rows, idx, seg, ids, n_ranks: int, out) -> None:
+    load_library().launch(
+        "deblurgs_reduce_sorted", rows.data_ptr(), idx.data_ptr(), seg.data_ptr(),
+        None if ids is None else ids.data_ptr(), n_ranks, out.data_ptr(),
+        stream_ptr(rows.device))
+    reduce_sorted.launches += 1
+
+
 def reduce_sorted(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch.Tensor:
     """[16, max_pairs] per-slot gradients + [max_pairs] compact ranks (``P``
     = no owner) → [P, 16] per-rank sums of rows 0-9 (columns 10-15 zero),
     with no atomics: two calls give bitwise-equal sums.
 
-    A stable sort of the ranks gives each rank's slots as one run in slot
-    order; the kernel (``csrc/reduce_sorted.cu``) sums each run with one
-    warp. CPU tensors take :func:`reduce_sorted_ref`; CUDA tensors launch
-    the kernel or raise.
+    For ranks in any slot order: a stable sort of the ranks gives each
+    rank's slots as one run in slot order, and the kernel
+    (``csrc/reduce_sorted.cu``) sums each run with one warp. The main path
+    needs no sort: :func:`reduce_pair_grads`. CPU tensors take
+    :func:`reduce_sorted_ref`; CUDA tensors launch the kernel or raise.
     """
     if pair_grads.device.type == "cpu":
         return reduce_sorted_ref(pair_grads, s_gc, P)
-    dev = pair_grads.device
-    if dev.type != "cuda" or s_gc.device != dev:
-        raise ValueError(f"reduce_sorted: tensors must share one CUDA device "
-                         f"(got {dev} and {s_gc.device})")
-    if (pair_grads.dtype != torch.float32 or pair_grads.dim() != 2
-            or pair_grads.shape[0] != NFIELD):
-        raise ValueError(f"reduce_sorted: pair_grads must be [{NFIELD}, max_pairs] float32, "
-                         f"got {tuple(pair_grads.shape)} {pair_grads.dtype}")
-    max_pairs = pair_grads.shape[1]
-    if s_gc.shape != (max_pairs,):
-        raise ValueError(f"reduce_sorted: s_gc must be [{max_pairs}]")
-    if max_pairs >= 2 ** 31 or P >= 2 ** 31:
-        raise ValueError("reduce_sorted: the kernel indexes slots and ranks with int32")
-    pair_grads = pair_grads.contiguous()
+    rows = _slot_rows("reduce_sorted", pair_grads)
+    dev = rows.device
+    if s_gc.device != dev or s_gc.shape != (rows.shape[0],):
+        raise ValueError(f"reduce_sorted: s_gc must be [{rows.shape[0]}] on {dev}")
+    if P >= 2 ** 31:
+        raise ValueError("reduce_sorted: the kernel indexes ranks with int32")
     key, perm = torch.sort(torch.clamp(s_gc, max=P).to(torch.int32), stable=True)
     seg = torch.searchsorted(key, torch.arange(P + 1, dtype=torch.int32, device=dev),
                              out_int32=True)
-    perm = perm.to(torch.int32)
-    out = torch.empty((P, NFIELD), dtype=torch.float32, device=dev)
-    load_library().launch(
-        "deblurgs_reduce_sorted", pair_grads.data_ptr(), max_pairs, perm.data_ptr(),
-        seg.data_ptr(), P, out.data_ptr(), stream_ptr(dev))
-    reduce_sorted.launches += 1
+    out = torch.zeros((P, NFIELD), dtype=torch.float32, device=dev)
+    _launch_reduce(rows, perm.to(torch.int32), seg, None, P, out)
     return out
 
 
 reduce_sorted.launches = 0
 
 
+def reduce_pair_grads_ref(staged: Staged, pair_grads: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version of K4 on the main path: rank r's sum over the pre-sort
+    slots [seg[r], seg[r+1]) read at their sorted positions ``inv``, in
+    float64, written to original row ``ids[r]``; rows no rank writes are
+    zero."""
+    seg = staged.seg.to(torch.int64)
+    counts = seg[1:] - seg[:-1]
+    rank = torch.repeat_interleave(torch.arange(P, device=seg.device), counts)
+    slots = staged.inv[int(seg[0]):int(seg[-1])].to(torch.int64)
+    sums = torch.zeros((P, 10), dtype=torch.float64, device=pair_grads.device)
+    sums.index_add_(0, rank, pair_grads[:10, slots].T.to(torch.float64))
+    out = torch.zeros((P, NFIELD), dtype=pair_grads.dtype, device=pair_grads.device)
+    hit = counts > 0
+    out[staged.ids[hit], :10] = sums[hit].to(pair_grads.dtype)
+    return out
+
+
 def reduce_pair_grads(staged: Staged, pair_grads: torch.Tensor, P: int) -> torch.Tensor:
-    """Per-Gaussian sums [P, 16] of the per-slot gradients: K4 by compact
-    rank, then the compact sums scattered back to original rows through
-    ``staged.ids`` (``pallas_blend.py:941-947``; the ids are unique on the
-    first ``n_emit`` ranks, and the rest are dropped)."""
-    sums = reduce_sorted(pair_grads, staged.s_gc, P)
-    rank = torch.arange(P, device=sums.device)
-    ids_u = torch.where(rank < staged.n_emit, staged.ids, P)
-    out = torch.zeros((P + 1, NFIELD), dtype=sums.dtype, device=sums.device)
-    out[ids_u] = sums
-    return out[:P]
+    """Per-Gaussian sums [P, 16] of the per-slot gradients (columns 10-15
+    zero): ``reduce_sorted`` by compact rank and the scatter to original
+    rows through ``staged.ids`` (``pallas_blend.py:929-948``), in one pass.
+
+    Before the staging sort the slots lie in runs by rank (``staged.seg``),
+    so K4 sums each run through the sort's inverse (``staged.inv``) and
+    writes the sum to the rank's original row: no second sort and no
+    scatter. Culled slots read as the zeros the compositing kernels leave
+    in the tail. CPU tensors take :func:`reduce_pair_grads_ref`; CUDA
+    tensors launch the kernel or raise.
+    """
+    if staged.inv is None or staged.seg is None:
+        raise ValueError("reduce_pair_grads: the staged list lacks the sort's inverse and "
+                         "the rank runs (stage it with sort_slots)")
+    if staged.seg.shape != (P + 1,):
+        raise ValueError(f"reduce_pair_grads: {staged.seg.shape[0] - 1} ranks staged, "
+                         f"P = {P}")
+    if pair_grads.device.type == "cpu":
+        return reduce_pair_grads_ref(staged, pair_grads, P)
+    rows = _slot_rows("reduce_pair_grads", pair_grads)
+    dev = rows.device
+    inv, seg = staged.inv, staged.seg
+    if (inv.device != dev or seg.device != dev or inv.dtype != torch.int32
+            or seg.dtype != torch.int32 or inv.shape != (rows.shape[0],)):
+        raise ValueError(f"reduce_pair_grads: inv [{rows.shape[0]}] and seg must be int32 on {dev}")
+    out = torch.zeros((P, NFIELD), dtype=torch.float32, device=dev)
+    _launch_reduce(rows, inv, seg, staged.ids.to(device=dev, dtype=torch.int32), P, out)
+    return out

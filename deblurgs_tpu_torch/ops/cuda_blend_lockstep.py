@@ -8,10 +8,12 @@ lockstep with stacked views (``:393-395``), and so does
 :func:`~deblurgs_tpu_torch.ops.cuda_blend.sort_stage`. Each kernel
 (``csrc/forward_lockstep.cu``, ``csrc/backward_lockstep.cu``) walks each
 tile's range of the depth-sorted pairs with one thread per pixel of a 16×16
-tile; their plain PyTorch versions (``forward_lockstep_ref``,
-``backward_lockstep_ref``) are K1's and K2's (``cuda_blend_mixed.forward_ref``,
-``backward_ref``), which run the same gates and pixel-sum order, so on the
-card each kernel agrees with its plain version bit for bit.
+tile. Their plain PyTorch versions run K1's and K2's walk
+(``cuda_blend_mixed.forward_ref``, ``backward_walk``): K5's is K1's, and
+K6's sums each pair's pixel terms in K6's own order
+(``cuda_blend_mixed._pixel_sum``, pixel rows a warp, not K2's patches), so
+on the card each kernel agrees with its plain version bit for bit. K6
+writes the slot-major [max_pairs, 16] rows K2 writes, the layout K4 reads.
 
 Outputs are tiled as the JAX function returns them: ``C [T, PX, 3]``,
 ``D [T, PX]``, ``final_T [T, PX]`` and ``n_con [T, PX]`` int32 (zeros unless
@@ -24,16 +26,26 @@ from __future__ import annotations
 import torch
 
 from deblurgs_tpu_torch.ops.cuda_blend import NFIELD, Staged
-from deblurgs_tpu_torch.ops.cuda_blend_mixed import (_check_kernel_inputs, backward_ref,
-                                                     backward_total, forward_ref)
+from deblurgs_tpu_torch.ops.cuda_blend_mixed import (_check_kernel_inputs, _row_pair_sums,
+                                                     backward_total, backward_walk, forward_ref)
 from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
 
-# K5 and K6 compute K1's and K2's function on one view's tiles, so K1's and
-# K2's plain versions are theirs too: lockstep refuses ``fast``, and the pixel
-# sum pads a tile's pixels with zeros, which leave each thread's running sum
-# bit for bit as K6 builds it at one, two or four pixels a thread.
+# K5 computes K1's function on one view's tiles, so K1's plain version is
+# its own (lockstep refuses ``fast``).
 forward_lockstep_ref = forward_ref
-backward_lockstep_ref = backward_ref
+
+
+def backward_lockstep_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
+                          tile_stop: torch.Tensor, dl_pix: torch.Tensor,
+                          dl_depth: torch.Tensor, total: torch.Tensor,
+                          tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K6: K2's walk (``cuda_blend_mixed.backward_walk``)
+    with K6's terms and pixel-sum order (``_row_pair_sums``: ``_pixel_sum``,
+    whose zero padding leaves each thread's running sum as K6 builds it at
+    one, two or four pixels a thread); [16, max_pairs], zero outside the
+    tiles' ranges."""
+    return backward_walk(cfg, fields, tile_start, tile_stop, dl_pix, dl_depth, total, tiles,
+                         _row_pair_sums)
 
 
 def _check_inputs(name: str, cfg, staged: Staged) -> None:
@@ -83,7 +95,8 @@ def backward_lockstep(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) 
     """Per-pair gradients of one view's composite: [16, max_pairs] in slot
     order, rows 0-1 d mean2d (pixel space), 2-4 d conic a/b/c (b's full
     gradient), 5 d opacity, 6-8 d rgb, 9 d depth; rows 10-15 and every slot
-    outside the tile ranges are zero. Inputs are tiled as
+    outside the tile ranges are zero. From the kernel it is the ``.T`` view
+    of a slot-major [max_pairs, 16] tensor. Inputs are tiled as
     :func:`forward_lockstep` returns them (``final_T``, ``C``, ``D``
     pre-background), ``dl_pix`` [T, PX, 3], ``dl_depth`` [T, PX], ``bg``
     [3]. CPU tensors take :func:`backward_lockstep_ref`; CUDA tensors
@@ -105,13 +118,13 @@ def backward_lockstep(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) 
     fields = fields.contiguous()
     dl_pix, dl_depth, total = (t.contiguous() for t in cot)
     start, stop = _ranges(staged, dev)
-    out = torch.empty((NFIELD, fields.shape[1]), dtype=torch.float32, device=dev)
+    out = torch.empty((fields.shape[1], NFIELD), dtype=torch.float32, device=dev)
     load_library().launch(
         "deblurgs_backward_lockstep", fields.data_ptr(), fields.shape[1], start.data_ptr(),
         stop.data_ptr(), nt, cfg.tiles_x, cfg.tile_w, cfg.tile_h, dl_pix.data_ptr(),
         dl_depth.data_ptr(), total.data_ptr(), out.data_ptr(), stream_ptr(dev))
     backward_lockstep.launches += 1
-    return out
+    return out.T
 
 
 backward_lockstep.launches = 0

@@ -7,7 +7,9 @@ Counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``'s
 ``csrc/backward_mixed.cu``) walks each stacked tile's contiguous range of
 the depth-sorted pairs; its plain PyTorch version (:func:`forward_ref`,
 :func:`backward_ref`) runs the same gates, vectorised over tiles and
-pixels and looping over the position in the tile's list.
+pixels and looping over the position in the tile's list. K2 sums each
+pair's pixel terms over warp-sized pixel patches (:func:`patch_layout`),
+and its plain version adds them in that order (:func:`_patch_pair_sums`).
 
 Outputs are tiled exactly as the JAX function returns them:
 ``C [T, PX, 3]``, ``D [T, PX]``, ``final_T [T, PX]`` and ``n_con [T, PX]``
@@ -18,6 +20,8 @@ int32 (zeros unless ``cfg.need_n_contrib``), with T = stacked tiles and PX
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from deblurgs_tpu_torch.ops.cuda_blend import Staged
@@ -26,7 +30,7 @@ from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
 _ALPHA_MIN = 1.0 / 255.0
 _T_EPS = 1e-4
 _MAX_TILE_PX = 1024   # 256 threads × 4 pixels per block in the kernels
-_LANES, _WARPS = 32, 8  # the pixel-sum layout: pixel p = lane + 32·warp + 256·k
+_LANES, _WARPS, _PPT = 32, 8, 4   # a block's warps, lanes and pixels a thread
 
 
 def _pixel_coords(cfg, tiles: torch.Tensor, dtype=torch.float32):
@@ -163,33 +167,144 @@ def _check_kernel_inputs(name, cfg, staged) -> None:
 
 
 def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum [n, PX] over pixels in the backward kernels' order: each thread
-    adds its pixels p = t + 256·k in turn, the warp adds its lanes by a
-    shuffle tree, then the eight warp partials are added in warp order.
-    Pixels past PX are zeros, which leave a running sum as it is, so this is
-    K2's order (four pixels a thread) and K6's (one to four) alike."""
+    """Sum [n, PX] over pixels in K6's order (``csrc/backward_lockstep.cu``):
+    each thread adds its pixels p = t + 256·k in turn, the warp adds its
+    lanes by a shuffle tree, then the eight warp partials are added in warp
+    order. Pixels past PX are zeros, which leave a running sum as it is, so
+    this is K6's order at one to four pixels a thread."""
     n, px_n = x.shape
     x = torch.nn.functional.pad(x, (0, _MAX_TILE_PX - px_n))
     x = x.reshape(n, _MAX_TILE_PX // (_LANES * _WARPS), _WARPS, _LANES)
     a = x[:, 0]
     for k in range(1, x.shape[1]):
         a = a + x[:, k]                           # [n, WARPS, LANES]
+    return _warp_sums(a)
+
+
+def _warp_sums(a: torch.Tensor) -> torch.Tensor:
+    """[n, warps, LANES] per-lane sums → [n]: each warp adds its lanes by the
+    shuffle tree (lanes paired by bit 4, then 3, 2, 1, 0; K2's reduce-scatter
+    pairs them the same way), then the warp partials are added in warp order."""
     off = _LANES // 2
     while off:
         a = a[..., :off] + a[..., off:2 * off]
         off //= 2
     s = a[:, 0, 0]
-    for w in range(1, _WARPS):
+    for w in range(1, a.shape[1]):
         s = s + a[:, w, 0]
     return s
 
 
+@functools.lru_cache(maxsize=None)
+def patch_layout(tile_w: int, tile_h: int) -> tuple[int, int, int, int]:
+    """K2's warp patches of a tile_w × tile_h tile: (patch_w, patch_h, nx, n).
+
+    A warp owns patch_w × patch_h pixels (patch_h = 32 / patch_w · 4): lane l
+    takes column l % patch_w and rows l / patch_w + k·(32 / patch_w), k < 4.
+    Patches tile the tile nx across, n in all; warp w takes patch (w % nx,
+    w // nx). 16×8 patches where the tile is 16 px wide or more (32×32 → 2×4
+    patches), else the widest power of two that fits. The kernel needs
+    n <= 8; a tile no width fits (a very wide, flat tile) is summed in this
+    order only by the plain version.
+    """
+    first = 16 if tile_w >= 16 else 1 << (tile_w.bit_length() - 1)
+    shapes = []
+    for pw in dict.fromkeys((first, 32, 8, 4, 2, 1)):
+        ph = _LANES // pw * _PPT
+        nx = -(-tile_w // pw)
+        shapes.append((pw, ph, nx, nx * -(-tile_h // ph)))
+    return next((sh for sh in shapes if sh[3] <= _WARPS), shapes[0])
+
+
+def _patch_xy(tile_w: int, tile_h: int):
+    """Column [warps, LANES, 1] and rows [warps, LANES, 4] in the tile of each
+    (warp, lane, k) of K2's patch layout (:func:`patch_layout`)."""
+    pw, ph, nx, n = patch_layout(tile_w, tile_h)
+    w = torch.arange(n)[:, None, None]
+    lane = torch.arange(_LANES)[None, :, None]
+    k = torch.arange(_PPT)[None, None, :]
+    return (w % nx) * pw + lane % pw, (w // nx) * ph + lane // pw + k * (_LANES // pw)
+
+
+@functools.lru_cache(maxsize=None)
+def _patch_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """[warps, LANES, 4] tile pixel of each (warp, lane, k) of K2's patch
+    layout, or tile_px where there is none."""
+    x, y = _patch_xy(tile_w, tile_h)
+    return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x, tile_w * tile_h)
+
+
+def _patch_gather(cfg, x: torch.Tensor) -> torch.Tensor:
+    """[n, PX] → [n, warps, LANES, 4] in K2's patch layout, zero where a
+    (warp, lane, k) has no pixel."""
+    idx = _patch_pixels(cfg.tile_w, cfg.tile_h).to(x.device)
+    return torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)[:, idx]
+
+
+def _lane_sum(g: torch.Tensor) -> torch.Tensor:
+    """[n, warps, LANES, 4] → [n, warps, LANES]: each thread adds its four
+    pixels to +0.0 in turn."""
+    a = torch.zeros_like(g[..., 0])
+    for k in range(_PPT):
+        a = a + g[..., k]
+    return a
+
+
+def _patch_pixel_sum(cfg, x: torch.Tensor) -> torch.Tensor:
+    """Sum [n, PX] over pixels in K2's order: each thread adds its four
+    pixels of its warp's patch to +0.0 in turn, the warp adds its lanes by
+    the shuffle tree, the warp partials are added in warp order."""
+    return _warp_sums(_lane_sum(_patch_gather(cfg, x)))
+
+
+def _row_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy):
+    """K6's per-pair sums of one walk step: each of the ten pixel terms
+    masked to the compositing pixels and summed in K6's order."""
+    ca, cbq, cc = (f[i][:, None] for i in (2, 3, 4))
+    gx = ca * dx + cbq * dy
+    gy = cc * dy + cbq * dx
+    terms = (-N * gx, -N * gy, -0.5 * N * dx * dx, -N * dx * dy, -0.5 * N * dy * dy,
+             GD) + tuple(w * d for d in dls)
+    return [_pixel_sum(torch.where(contrib, t, 0.0)) for t in terms]
+
+
+def _patch_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy):
+    """K2's per-pair sums of one walk step, in its order: a thread's four
+    pixels share dx, so rows 0-4 come from its moments ΣN, ΣN·dy and
+    Σ(N·dy)·dy (added over its pixels to +0.0 in turn), rows 5-9 from its
+    pixels' terms; then the shuffle tree and the warp order."""
+    dev, dtype = f.device, f.dtype
+    Nz = _patch_gather(cfg, torch.where(contrib, N, 0.0))
+    dyg = _patch_gather(cfg, dy)
+    sN, sNdy, sNdy2 = (torch.zeros_like(Nz[..., 0]) for _ in range(3))
+    for k in range(_PPT):
+        nd = Nz[..., k] * dyg[..., k]
+        sN = sN + Nz[..., k]
+        sNdy = sNdy + nd
+        sNdy2 = sNdy2 + nd * dyg[..., k]
+    img_tile = tiles % cfg.num_tiles
+    tx0 = ((img_tile % cfg.tiles_x) * cfg.tile_w).to(dtype)[:, None, None]
+    lane_x = _patch_xy(cfg.tile_w, cfg.tile_h)[0][..., 0].to(device=dev, dtype=dtype)
+    dxl = f[0][:, None, None] - (tx0 + lane_x)
+    ca, cbq, cc = (f[i][:, None, None] for i in (2, 3, 4))
+    cadx, cbdx = ca * dxl, cbq * dxl
+    lanes = [-(cadx * sN + cbq * sNdy), -(cc * sNdy + cbdx * sN), -0.5 * dxl * dxl * sN,
+             -(dxl * sNdy), -0.5 * sNdy2]
+    lanes += [_lane_sum(_patch_gather(cfg, torch.where(contrib, t, 0.0)))
+              for t in (GD,) + tuple(w * d for d in dls)]
+    return [_warp_sums(a) for a in lanes]
+
+
 def backward_total(cfg, bg, final_T, dl_pix, dl_depth, C, D) -> torch.Tensor:
     """Per-pixel ``total = dl·C + final_T·(dl·bg + z_far·dL/dd)`` (with the
-    pre-background C and D), the S_0 of every pixel's suffix sums; computed
-    outside K2 as the JAX package does (``pallas_blend_mixed.py:737-739``)."""
-    sigma_dot = torch.sum(C * dl_pix, dim=-1) + D * dl_depth
-    bg_dot = dl_pix @ bg + cfg.z_far * dl_depth
+    pre-background C and D), the S_0 of every pixel's suffix sums
+    (``pallas_blend_mixed.py:737-739``). Each product and sum is written out
+    in the order K2 computes it in its prologue; K6 takes it from its
+    wrapper."""
+    d0, d1, d2 = dl_pix.unbind(-1)
+    c0, c1, c2 = C.unbind(-1)
+    sigma_dot = ((c0 * d0 + c1 * d1) + c2 * d2) + D * dl_depth
+    bg_dot = ((d0 * bg[0] + d1 * bg[1]) + d2 * bg[2]) + cfg.z_far * dl_depth
     return sigma_dot + final_T * bg_dot
 
 
@@ -201,10 +316,21 @@ def backward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
     in every slot outside these tiles' ranges.
 
     Replays K1's transmittance front to back with its exact arithmetic, and
-    adds each pair's pixel terms in the kernel's order (:func:`_pixel_sum`),
-    so on the card it matches the kernel bit for bit. Tiles are walked in
-    lockstep by position in their lists, longest list first.
+    adds each pair's pixel terms in the kernel's order
+    (:func:`_patch_pair_sums`), so on the card it matches the kernel bit for
+    bit.
     """
+    return backward_walk(cfg, fields, tile_start, tile_stop, dl_pix, dl_depth, total, tiles,
+                         _patch_pair_sums)
+
+
+def backward_walk(cfg, fields, tile_start, tile_stop, dl_pix, dl_depth, total, tiles,
+                  pair_sums) -> torch.Tensor:
+    """The backward compositing walk of K2 and K6: each step's per-pixel
+    quantities go to ``pair_sums`` (the kernel's terms and summation order,
+    :func:`_patch_pair_sums` or :func:`_row_pair_sums`), which returns the
+    ten per-pair sums. Tiles are walked in lockstep by position in their
+    lists, longest list first."""
     dev, dtype = fields.device, fields.dtype
     out = torch.zeros((16, fields.shape[1]), dtype=dtype, device=dev)
     if tiles is None:
@@ -255,13 +381,10 @@ def backward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
         prefix[:m] = torch.where(contrib, prefix[:m] + w * dlc, prefix[:m])
         S = tot[:m] - prefix[:m]
         dla = torch.where(contrib, dlc * Tm - S / (1.0 - alpha), 0.0)
-        N = araw * dla
-        gx = ca * dx + cbq * dy
-        gy = cc * dy + cbq * dx
-        terms = (-N * gx, -N * gy, -0.5 * N * dx * dx, -N * dx * dy, -0.5 * N * dy * dy,
-                 G * dla, w * r_, w * g_, w * b_, w * d_)
-        for row, term in enumerate(terms):
-            out[row, slots] = _pixel_sum(torch.where(contrib, term, 0.0))
+        sums = pair_sums(cfg, ts[:m], f, contrib, araw * dla, G * dla, w, (r_, g_, b_, d_),
+                         dx, dy)
+        for row, v in enumerate(sums):
+            out[row, slots] = v
         T[:m] = torch.where(contrib, test_T, Tm)
     return out
 
@@ -270,7 +393,8 @@ def backward_mixed(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> 
     """Per-pair gradients of the composite: [16, max_pairs] in slot order,
     rows 0-1 d mean2d (pixel space), 2-4 d conic a/b/c (b's full
     gradient), 5 d opacity, 6-8 d rgb, 9 d depth; rows 10-15 and every slot
-    outside the tile ranges are zero.
+    outside the tile ranges are zero. From the kernel it is the ``.T`` view
+    of a slot-major [max_pairs, 16] tensor, the layout K4 reads.
 
     Inputs are tiled as :func:`forward_mixed` returns them: ``final_T``,
     ``C`` and ``D`` its outputs (pre-background), ``dl_pix`` [T, PX, 3] and
@@ -278,32 +402,39 @@ def backward_mixed(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> 
     CPU tensors take :func:`backward_ref`; CUDA tensors launch the kernel
     (``csrc/backward_mixed.cu``) or raise.
     """
-    total = backward_total(cfg, bg, final_T, dl_pix, dl_depth, C, D)
     fields = staged.fields
     if fields.device.type == "cpu":
+        total = backward_total(cfg, bg, final_T, dl_pix, dl_depth, C, D)
         return backward_ref(cfg, fields, staged.tile_start, staged.tile_stop, dl_pix,
                             dl_depth, total)
     _check_kernel_inputs("backward_mixed", cfg, staged)
     dev = fields.device
     nt, px_n = cfg.total_tiles, cfg.tile_px
-    cot = (dl_pix, dl_depth, total)
-    if any(t.device != dev or t.dtype != torch.float32 for t in cot):
-        raise ValueError("backward_mixed: cotangents must be float32 on the fields' device")
-    if dl_pix.shape != (nt, px_n, 3) or dl_depth.shape != (nt, px_n):
-        raise ValueError(f"backward_mixed: cotangents must be [{nt}, {px_n}(, 3)], got "
-                         f"{tuple(dl_pix.shape)} and {tuple(dl_depth.shape)}")
+    per_px = (dl_pix, dl_depth, C, D, final_T, bg)
+    if any(t.device != dev or t.dtype != torch.float32 for t in per_px):
+        raise ValueError("backward_mixed: cotangents, C, D, final_T and bg must be float32 "
+                         "on the fields' device")
+    shapes = (dl_pix.shape, C.shape, dl_depth.shape, D.shape, final_T.shape, bg.shape)
+    if shapes != ((nt, px_n, 3),) * 2 + ((nt, px_n),) * 3 + ((3,),):
+        raise ValueError(f"backward_mixed: expected [{nt}, {px_n}(, 3)] per-pixel inputs "
+                         f"and bg [3], got {shapes}")
+    patch_w, _, _, n_patches = patch_layout(cfg.tile_w, cfg.tile_h)
+    if n_patches > _WARPS:
+        raise ValueError(f"backward_mixed: a {cfg.tile_w}x{cfg.tile_h} tile needs "
+                         f"{n_patches} warp patches, the kernel has {_WARPS}")
     fields = fields.contiguous()
-    dl_pix, dl_depth, total = (t.contiguous() for t in cot)
+    dl_pix, dl_depth, C, D, final_T, bg = (t.contiguous() for t in per_px)
     start = staged.tile_start.to(device=dev, dtype=torch.int32).contiguous()
     stop = staged.tile_stop.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((16, fields.shape[1]), dtype=torch.float32, device=dev)
+    out = torch.empty((fields.shape[1], 16), dtype=torch.float32, device=dev)
     load_library().launch(
         "deblurgs_backward_mixed", fields.data_ptr(), fields.shape[1],
         start.data_ptr(), stop.data_ptr(), nt, cfg.num_tiles, cfg.tiles_x,
-        cfg.tile_w, cfg.tile_h, int(cfg.fast), dl_pix.data_ptr(), dl_depth.data_ptr(),
-        total.data_ptr(), out.data_ptr(), stream_ptr(dev))
+        cfg.tile_w, cfg.tile_h, patch_w, int(cfg.fast), dl_pix.data_ptr(),
+        dl_depth.data_ptr(), C.data_ptr(), D.data_ptr(), final_T.data_ptr(), bg.data_ptr(),
+        cfg.z_far, out.data_ptr(), stream_ptr(dev))
     backward_mixed.launches += 1
-    return out
+    return out.T
 
 
 backward_mixed.launches = 0

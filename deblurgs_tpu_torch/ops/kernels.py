@@ -37,15 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _vp = ctypes.c_void_p
 _i64 = ctypes.c_int64
 _i32 = ctypes.c_int
+_f32 = ctypes.c_float
 # C entry points: name -> argument types (every pointer and the stream are
 # void*); each returns the cudaError_t of its launch
 _SIGNATURES = {
     "deblurgs_broadcast_fields": [_vp, _vp, _vp, _i64, _i64, _vp],
     "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                                _i32, _i32, _vp, _vp, _vp, _vp, _vp],
-    "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
-                                _i32, _i32, _vp, _vp, _vp, _vp, _vp],
-    "deblurgs_reduce_sorted": [_vp, _i64, _vp, _vp, _i64, _vp, _vp],
+    "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
+                                _i32, _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp],
+    "deblurgs_reduce_sorted": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
     "deblurgs_forward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                                   _vp, _vp, _vp, _vp, _vp],
     "deblurgs_backward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,

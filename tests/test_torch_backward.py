@@ -7,6 +7,9 @@ package's Pallas path, run in interpret mode as its own tests run it.
   ``backward_mixed`` on the same scene (its per-Gaussian sums);
 - K4's plain version against ``pallas_blend._reduce_sorted`` and
   ``segment_sum``, with NaN in the sentinel slots;
+- K2's pixel-sum order over its warp patches is a sum, and its warp cull
+  leaves every slot's gradient bit for bit as the walk without it, on
+  splats that straddle patch edges;
 - the indefinite-conic NaN regression of ``tests/test_pallas_blend.py``.
 
 Gradients are compared after dividing by the reference's max |g|
@@ -53,14 +56,14 @@ def assert_grads_close(got, want, atol=GRAD_ATOL, name=""):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0, err_msg=name)
 
 
-def _configs(n_images, need_n_contrib=False, fast=False):
-    kw = dict(width=W, height=H, tile_w=TILE, tile_h=TILE, max_pairs=MAX_PAIRS,
+def _configs(n_images, need_n_contrib=False, fast=False, tile=TILE):
+    kw = dict(width=W, height=H, tile_w=tile, tile_h=tile, max_pairs=MAX_PAIRS,
               need_n_contrib=need_n_contrib, fast=fast, n_images=n_images,
               layout="mixed", backend="pallas", window=2)
     return jtb.BlendConfig(interpret=True, **kw), ttb.BlendConfig(**kw)
 
 
-def _scene(n_images, seed=21):
+def _scene(n_images, seed=21, tile=TILE):
     """Flattened JAX preprocess outputs (numpy) of a small scene seen by
     ``n_images`` cameras, the background, and seeded image/depth cotangents."""
     cam = make_camera(W, H, n_views=n_images) if n_images > 1 else make_camera(W, H)
@@ -70,7 +73,7 @@ def _scene(n_images, seed=21):
 
     def pre(c):
         return jras.pre_lib.preprocess(m, cov6, sh, None, o, c, jcs, sh_degree=1,
-                                       tile_w=TILE, tile_h=TILE, tight_rect=True)
+                                       tile_w=tile, tile_h=tile, tight_rect=True)
 
     out = jax.vmap(pre)(jcam) if n_images > 1 else pre(jcam)
     lead = 2 if n_images > 1 else 1
@@ -144,10 +147,13 @@ def _port_pair_grads(tcfg, flat, bg, dl_pix, dl_d):
     return staged, args, cuda_blend_mixed.backward_mixed(tcfg, staged, *args)
 
 
-@pytest.mark.parametrize("fast", [False, True], ids=["default", "fast"])
-def test_plain_backward_and_reduce_match_jax_backward_mixed(fast):
-    jcfg, tcfg = _configs(3, fast=fast)
-    flat, bg, _, _ = _scene(3, seed=8)
+@pytest.mark.parametrize("fast,tile", [(False, 16), (True, 16), (False, 32)],
+                         ids=["default", "fast", "t32"])
+def test_plain_backward_and_reduce_match_jax_backward_mixed(fast, tile):
+    """K2's plain version (tile 32: 16×8 warp patches, 2×4 of them; tile
+    16: 1×2) and K4's on the staging's runs against JAX's backward_mixed."""
+    jcfg, tcfg = _configs(3, fast=fast, tile=tile)
+    flat, bg, _, _ = _scene(3, seed=8, tile=tile)
     rng = np.random.default_rng(4)
     nt, px = tcfg.total_tiles, tcfg.tile_px
     dl_pix = rng.standard_normal((nt, px, 3)).astype(np.float32)
@@ -196,6 +202,88 @@ def test_plain_backward_on_a_tile_subset_and_repeat_calls():
 def test_pixel_sum_order_is_a_sum():
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((7, 256)))
     torch.testing.assert_close(cuda_blend_mixed._pixel_sum(x), x.sum(-1))
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [(32, 32), (16, 16), (8, 8), (16, 8), (24, 24)])
+def test_patch_pixel_sum_is_a_sum(tile_w, tile_h):
+    """K2's order (warp patches, four pixels a thread) covers each pixel of
+    the tile once, in at most the kernel's 8 warps, and sums them."""
+    pw, ph, nx, n = cuda_blend_mixed.patch_layout(tile_w, tile_h)
+    assert n <= 8 and pw * ph == 128
+    idx = cuda_blend_mixed._patch_pixels(tile_w, tile_h).flatten()
+    assert sorted(idx[idx < tile_w * tile_h].tolist()) == list(range(tile_w * tile_h))
+    if (tile_w, tile_h) == (32, 32):
+        assert (pw, ph, n) == (16, 8, 8)
+    cfg = ttb.BlendConfig(width=64, height=64, tile_w=tile_w, tile_h=tile_h)
+    x = torch.from_numpy(np.random.default_rng(tile_w).standard_normal((5, tile_w * tile_h)))
+    torch.testing.assert_close(cuda_blend_mixed._patch_pixel_sum(cfg, x), x.sum(-1))
+
+
+def _edge_scene(n=400, seed=11, size=64):
+    """Splats centred on and near K2's 16×8 patch edges of 32×32 tiles
+    (x near multiples of 16, y near multiples of 8), with sizes from
+    sub-pixel to several patches, elongated and rotated conics and
+    opacities from below 1/255 to 0.99: staged inputs of one view."""
+    rng = np.random.default_rng(seed)
+    mx = 16.0 * rng.integers(0, size // 16 + 1, n) + rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], n)
+    my = 8.0 * rng.integers(0, size // 8 + 1, n) + rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], n)
+    mx += rng.uniform(-0.05, 0.05, n)
+    sig = np.exp(rng.uniform(np.log(0.3), np.log(12.0), (n, 2)))
+    th = rng.uniform(0, np.pi, n)
+    c, s_ = np.cos(th), np.sin(th)
+    cov = np.empty((n, 2, 2))
+    cov[:, 0, 0] = c * c * sig[:, 0] ** 2 + s_ * s_ * sig[:, 1] ** 2 + 0.3
+    cov[:, 1, 1] = s_ * s_ * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2 + 0.3
+    cov[:, 0, 1] = cov[:, 1, 0] = c * s_ * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
+    inv = np.linalg.inv(cov)
+    conic = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], -1)
+    opac = np.exp(rng.uniform(np.log(1e-3), np.log(0.99), n))
+    rad = 3.0 * np.sqrt(np.maximum(cov[:, 0, 0], cov[:, 1, 1]))
+    t = size // 32
+    rect = np.stack([np.clip((mx - rad) // 32, 0, t), np.clip((my - rad) // 32, 0, t),
+                     np.clip((mx + rad) // 32 + 1, 0, t), np.clip((my + rad) // 32 + 1, 0, t)],
+                    -1).astype(np.int32)
+    area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])).astype(np.int32)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))   # noqa: E731
+    return [f32(np.stack([mx, my], -1)), f32(conic), f32(opac), f32(rng.uniform(0, 1, (n, 3))),
+            f32(rng.uniform(1, 5, n)), torch.from_numpy(rect), torch.from_numpy(area)]
+
+
+@pytest.mark.parametrize("fast,tile", [(False, 32), (True, 32), (False, 16)],
+                         ids=["t32", "t32_fast", "t16"])
+def test_patch_order_on_straddling_splats(fast, tile):
+    """On splats that straddle K2's patch edges, its plain version (pixel
+    sums by warp patch, per-thread moments) gives K6's pixel-row sums to
+    float32 reassociation, and the splats do reach several patches."""
+    size = 64
+    cfg = ttb.BlendConfig(width=size, height=size, tile_w=tile, tile_h=tile, max_pairs=1 << 13,
+                          need_n_contrib=False, fast=fast)
+    flat = _edge_scene(size=size)
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    rng = np.random.default_rng(2)
+    dl_pix = torch.from_numpy(rng.standard_normal((cfg.total_tiles, cfg.tile_px, 3))
+                              .astype(np.float32))
+    dl_d = torch.from_numpy((0.05 * rng.standard_normal((cfg.total_tiles, cfg.tile_px)))
+                            .astype(np.float32))
+    C, D, T, _ = cuda_blend_mixed.forward_mixed(cfg, staged)
+    total = cuda_blend_mixed.backward_total(cfg, torch.tensor([0.2, 0.3, 0.4]), T, dl_pix, dl_d,
+                                            C, D)
+    args = (cfg, staged.fields, staged.tile_start, staged.tile_stop, dl_pix, dl_d, total)
+    patches = cuda_blend_mixed.backward_ref(*args)
+    rows = cuda_blend_mixed.backward_walk(*args, None, cuda_blend_mixed._row_pair_sums)
+    assert bool(patches[:10].any()) and bool((patches[10:] == 0).all())
+    for row in range(10):
+        assert_grads_close(patches[row], rows[row], atol=1e-6, name=f"row {row}")
+    # many pairs pass the gate in two patches or more
+    kept = int(staged.tile_stop[-1])
+    f = staged.fields[:, :kept]
+    px, py = cuda_blend_mixed._pixel_coords(cfg, f[10].long())
+    dx, dy = f[0][:, None] - px, f[1][:, None] - py
+    power = -0.5 * (f[2][:, None] * dx * dx + f[4][:, None] * dy * dy) - f[3][:, None] * dx * dy
+    gate = (power <= 0) & (f[5][:, None] * torch.exp(torch.clamp(power, max=0.0)) >= 1 / 255)
+    idx = cuda_blend_mixed._patch_pixels(tile, tile).flatten(1)
+    per_patch = torch.cat([gate, gate.new_zeros((kept, 1))], 1)[:, idx].any(-1)
+    assert per_patch.shape[1] > 1 and int((per_patch.sum(1) > 1).sum()) > kept // 4
 
 
 # ---------------------------------------------------------------------------
