@@ -9,21 +9,21 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
 1. env        card name and power limit, torch / CUDA / nvcc versions, TF32 off;
 2. build      compiles the kernel library and reports each kernel's registers;
 3. parity     each kernel against its plain PyTorch version on the card at a
-              mid size (256×256, 4k Gaussians, F = 3, tile 32): K3
-              bitwise, K1 at atol 1e-5 / rtol 1e-4 with n_con exact, for
-              need_n_contrib on and off and for ``fast``;
+              mid size (256×256, 4k Gaussians, F = 3, tile 32 and 16): K3
+              and K1 bit for bit, n_con included, for need_n_contrib on and
+              off and for ``fast``;
 4. slice      the blurry render at full width (1920×1080, 100k Gaussians,
               SH degree 2, one order-9 se3 curve, F = 21, tile 32): the
               batched composition of the training step (subframe_cameras →
               one render_batch → mean) and the user-facing ``blur.query``
               (21 renders), with every launch counter zeroed just before and
               read just after; a per-stage breakdown by CUDA events; K3
-              held bitwise against its plain version, K1 against its plain
-              version on 64 sampled tiles, and the batched blur against the
-              query's mean of 21 renders;
+              held bitwise against its plain version, K1 bitwise against
+              its plain version on 64 sampled tiles, and the batched blur
+              against the query's mean of 21 renders;
 5. trained    ``runs/r5_jointb_state.npz`` at 256×256: camera 0's blurry
               observation and its sharp mid-trajectory view, kernel path
-              against plain path;
+              against plain path, and K1 bitwise against its plain version;
 6. train_parity  the backward kernels on the parity scene: K2 against its
               plain version bit for bit (default and ``fast``), K4 on the main
               path (the staging's runs, sums to original rows) and by rank
@@ -61,11 +61,15 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               versions on 64 tiles;
 12. yardstick each kernel timed beside its plain version, its bound and, for
               K3 and K4, the one PyTorch call that computes the same function;
-              at the train step's lists K2 with ptxas's registers and its
-              pair loop's SASS count, K1's bound there, and K2's and K4's
-              times before their redesign (and K2's after each design move,
-              as recorded); K5 and K6
-              at the eval phase's shapes, with K1 and K2 on the same lists.
+              K1 also at tile 16 on the slice's scene; at the train step's
+              lists K1, K2, K3 and K4, K1 and K2 with ptxas's registers and
+              their pair loops' SASS counts, K1's (warp, pair) visits under
+              its schedule and the one before it (``forward_schedule``, its
+              outputs held bitwise to the kernel's) and the issue rate they
+              need at the SM clock sampled meanwhile, each redesigned kernel's
+              time before its redesign (and K1's and K2's after each design
+              move, as recorded); K5 and K6 at the eval phase's shapes, with
+              K1 and K2 on the same lists.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -102,6 +106,34 @@ GRAD_ATOL = 2e-5              # |got - want| / max|want| for gradients
 # the train step's K2 and K4 (with its sort and scatter) before their
 # redesign, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table)
 K2_PREVIOUS_MS, K4_PREVIOUS_MS = 49.77, 14.14
+# K1 and K3 before their redesign, on the same card (PERF.md's kernel table)
+K1_PREVIOUS_MS = {"slice": 6.19, "train_lists": 15.64}
+K3_PREVIOUS_MS = 0.718        # slice
+# K1 on the same card after each design move of its redesign, as a harness
+# beside this script's yardstick timed them while the moves were kernel
+# variants (since folded into the one design; PERF.md's Findings):
+# ms on the train step's lists at step 110 (the yardstick's), at step 100
+# (before any step) and on the slice; None where that list was not timed
+K1_DESIGN_MOVES_MS = {
+    "the kernel before the redesign": (15.63, 30.20, 6.19),
+    "warp patches, hoisted dx terms": (None, 28.26, 5.57),
+    "+ per-warp exit": (None, 28.10, 5.82),
+    "+ pair-major 16 B staging": (None, 27.00, 5.57),
+    "+ branch-free pixels": (None, 24.91, 6.25),
+    "+ NEED_N template": (12.49, 24.27, 6.09),
+    "+ five blocks an SM": (12.00, 23.32, 5.86),
+    "+ frozen flags in a bit mask": (11.97, 23.28, 5.85),
+    "+ a vote every second pair": (11.67, 22.66, 5.70),
+    "+ frozen as an infinite alpha threshold (the design)": (11.36, 22.04, 5.54),
+    "dropped: branchy pixels": (13.84, 26.37, 5.51),
+    "dropped: skip the accumulation where a warp composites nothing": (13.56, 25.92, 5.65),
+    "dropped: branch-free without the exit": (14.82, 28.72, 5.68),
+    "dropped: six blocks an SM": (12.77, 24.81, 6.25),
+    "dropped: 8 pixels a thread, 128 threads": (11.36, 22.09, 5.51),
+}
+K1_MAIN_ENTRY = "forward_mixed_kernelILi4ELb1ELb0ELb0E"   # <4 px, patches, exact, no n_con>
+K1_PAIRS_PER_LOOP = 2         # K1's pair loop walks two pairs an iteration
+SM_ISSUE_PER_CLOCK = 4        # warp instructions an SM issues a cycle (four schedulers)
 # K2 on the same card after each design move of its redesign, as this
 # script's yardstick timed them while the moves were kernel variants (they
 # were folded into the one design since; PERF.md's Findings, PR 4)
@@ -167,6 +199,22 @@ def check_k3(torch, where: str, fslot, c) -> float:
     return err
 
 
+def check_k1(torch, where: str, bcfg, staged, got, tiles=None) -> float:
+    """K1's outputs against its plain version (on ``tiles`` or all): bit
+    for bit, n_con included. Returns the max |diff| (0.0)."""
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed as cbm
+
+    want = cbm.forward_ref(bcfg, staged.fields, staged.tile_start, staged.tile_stop,
+                           tiles=tiles)
+    if tiles is not None:
+        got = tuple(g[tiles] for g in got)
+    for name, g, w in zip(("C", "D", "final_T", "n_con"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K1 {where}: {name} differs from the plain version "
+                                 f"(max |diff| {max_err(g, w):.3e})")
+    return max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+
+
 def ptxas_report(log: str, kernel: str) -> list:
     """Registers, shared memory and spills ptxas reported for each
     instantiation of ``kernel`` in the build log."""
@@ -190,35 +238,47 @@ def ptxas_report(log: str, kernel: str) -> list:
     return out
 
 
-def sass_pair_loop(torch) -> dict:
-    """Instruction counts of K2's pair loop (the default, not ``fast``),
-    from ``cuobjdump -sass`` of its object in ``build/``: the innermost loop
-    around the staged fields' first 16 B shared load, split at its first
-    shuffle into the pixels' part and the reduction's."""
+def sass_pair_loop(source: str, entry: str, load: str = "LDS.128") -> dict:
+    """Instruction counts of a kernel's pair loop from ``cuobjdump -sass`` of
+    its object in ``build/`` (``source``: the object's stem, e.g.
+    ``backward_mixed``; ``entry``: a fragment of the instantiation's
+    mangled name)."""
     import glob
-    import re
-    import shutil
 
     from deblurgs_tpu_torch.ops import kernels
 
+    objs = glob.glob(os.path.join(kernels.BUILD, f"{source}_*.o"))
+    if not objs:
+        return {"not_measured": "no object"}
+    return sass_loop_counts(max(objs, key=os.path.getmtime), entry, load)
+
+
+def sass_loop_counts(obj: str, entry: str, load: str = "LDS.128") -> dict:
+    """The innermost loop around the first ``load`` (the staged pair's
+    first shared-memory read) of the function whose mangled name holds
+    ``entry`` in the object ``obj``: its instruction count, split at its
+    first shuffle (where it has one) into the pixels' part and the
+    reduction's, and the most frequent opcodes of the pixels' part."""
+    import re
+    import shutil
+
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    objs = glob.glob(os.path.join(kernels.BUILD, "backward_mixed_*.o"))
-    if not objs or not os.path.exists(tool):
-        return {"not_measured": "no cuobjdump or no object"}
-    sass = subprocess.run([tool, "-sass", max(objs, key=os.path.getmtime)],
-                          capture_output=True, text=True, timeout=120).stdout
+    if not os.path.exists(tool):
+        return {"not_measured": "no cuobjdump"}
+    sass = subprocess.run([tool, "-sass", obj], capture_output=True, text=True,
+                          timeout=120).stdout
     funcs = dict(re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S))
-    body = next(b for name, b in funcs.items() if "backward_mixed_kernelILb0E" in name)
+    body = next(b for name, b in funcs.items() if entry in name)
     ins = [(int(a, 16), op) for a, op in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
-    lds = next(a for a, op in ins if op.startswith("LDS.128"))
+    lds = next(a for a, op in ins if op.startswith(load))
     back = [(int(t, 16), a) for a, t in
             ((int(a, 16), t) for a, t in re.findall(
                 r"/\*([0-9a-f]{4,})\*/[^\n]*?BRA (?:!?U?P\d, )?0x([0-9a-f]+)", body))
             if int(t, 16) <= lds < a]
     top, end = max(back)
     loop = [(a, op) for a, op in ins if top <= a <= end]
-    shfl = next(a for a, op in loop if op.startswith("SHFL"))
+    shfl = next((a for a, op in loop if op.startswith("SHFL")), end + 1)
     pixels = [op.split(".")[0] for a, op in loop if a < shfl]
     hist = {}
     for op in pixels:
@@ -226,7 +286,7 @@ def sass_pair_loop(torch) -> dict:
     return {"function_instructions": len(ins),
             "pair_loop_instructions": len(loop), "pixels_part": len(pixels),
             "reduction_part": len(loop) - len(pixels),
-            "pixels_part_ops": dict(sorted(hist.items(), key=lambda kv: -kv[1])[:8])}
+            "pixels_part_ops": dict(sorted(hist.items(), key=lambda kv: -kv[1])[:10])}
 
 
 def scaled_err(got, want) -> float:
@@ -487,10 +547,12 @@ def phase_parity(torch, dev):
         torch.Generator(device=dev).manual_seed(SEED), init_noise=0.01)
     cams = motion_lib.subframe_cameras(motion, 0, motion_lib.sample_nu(motion, 0), proj)
     errs, k3_err = {}, 0.0
-    for name, kw in (("n_contrib", dict(need_n_contrib=True)),
-                     ("plain", dict(need_n_contrib=False)),
-                     ("fast", dict(need_n_contrib=False, fast=True))):
-        rcfg = RasterizeConfig(tile_w=32, tile_h=32, max_pairs=1 << 16, **kw)
+    for name, tile, kw in (("n_contrib", 32, dict(need_n_contrib=True)),
+                           ("plain", 32, dict(need_n_contrib=False)),
+                           ("fast", 32, dict(need_n_contrib=False, fast=True)),
+                           ("t16_n_contrib", 16, dict(need_n_contrib=True)),
+                           ("t16", 16, dict(need_n_contrib=False))):
+        rcfg = RasterizeConfig(tile_w=tile, tile_h=tile, max_pairs=1 << 17, **kw)
         bcfg = rcfg.blend_config(cs, n_images=3)
         flat = flat_preprocess(gaussians, cams, cs, rcfg)
         c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
@@ -500,13 +562,9 @@ def phase_parity(torch, dev):
         if int(st.total) > bcfg.max_pairs:
             raise AssertionError("parity scene overflows its pair budget")
         got = cuda_blend_mixed.forward_mixed(bcfg, st)
-        want = cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
         torch.cuda.synchronize()
-        errs[name] = {k: check_close(f"K1 {name} {k}", g, w, 1e-5, 1e-4)
-                      for k, g, w in zip(("C", "D", "final_T"), got[:3], want[:3])}
-        if not torch.equal(got[3], want[3]):
-            raise AssertionError(f"K1 {name}: n_con differs from the plain version")
-        errs[name]["pairs"] = int(st.total)
+        errs[name] = {"K1": check_k1(torch, f"parity {name}", bcfg, st, got),
+                      "pairs": int(st.total)}
     emit("parity", K3=k3_err, K1=errs)
     return errs, k3_err
 
@@ -615,10 +673,7 @@ def phase_slice(torch, dev):
         # ---- K1 against its plain version on 64 sampled tiles ----
         tiles = torch.from_numpy(np.random.default_rng(SEED + 2).choice(
             bcfg.total_tiles, 64, replace=False)).to(dev)
-        want = cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop,
-                                            tiles=tiles)
-        err_k1 = max(check_close(f"K1 full width {k}", g[tiles], w, 1e-5, 1e-4)
-                     for k, g, w in zip(("C", "D", "final_T"), k1[:3], want[:3]))
+        err_k1 = check_k1(torch, "full width (64 tiles)", bcfg, st, k1, tiles=tiles)
 
     emit("slice", width=W, height=H, gaussians=N, sh_degree=2, subframes=F, tile=32,
          max_pairs=max_pairs, num_pairs=num_pairs, max_per_tile=max_per_tile,
@@ -627,14 +682,25 @@ def phase_slice(torch, dev):
          launches=launches, launches_per_batched_blur=1, launches_per_query=F,
          err_batched_vs_query=err_loop, err_k3=err_k3, err_k1_sampled_tiles=err_k1,
          profile=profile)
+
+    def stage_at(tile: int):
+        """The slice's lists staged at tile × tile tiles (its own budget)."""
+        probe_t = RasterizeConfig(tile_w=tile, tile_h=tile, need_n_contrib=False)
+        cfg_t = RasterizeConfig(tile_w=tile, tile_h=tile, need_n_contrib=False,
+                                max_pairs=size_max_pairs(gaussians, cams, cs, probe_t))
+        b = cfg_t.blend_config(cs, n_images=F)
+        with torch.no_grad():
+            return b, cuda_blend.sort_stage(b, *flat_preprocess(gaussians, cams, cs, cfg_t),
+                                            b.max_pairs)
+
     return dict(bcfg=bcfg, staged=st, compact=c, launches=launches, err_k1=err_k1,
-                err_k3=err_k3)
+                err_k3=err_k3, stage_at=stage_at)
 
 
 def phase_trained(torch, dev):
     from deblurgs_tpu_torch import weights
     from deblurgs_tpu_torch.models import motion as motion_lib
-    from deblurgs_tpu_torch.ops import rasterize
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, rasterize
     from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
 
     path = os.path.join(REPO, "runs", "r5_jointb_state.npz")
@@ -672,6 +738,9 @@ def phase_trained(torch, dev):
             errs[name] = max(check_close(f"trained {name} {k}", a, b, 1e-5, rtol)
                              for k, a, b, rtol in zip(("image", "depth", "final_T"),
                                                       kern[:3], plain[:3], (0.0, 1e-4, 0.0)))
+            staged = cuda_blend.sort_stage(bcfg, *flat, bcfg.max_pairs)
+            errs[name] = max(errs[name], check_k1(torch, f"trained {name}", bcfg, staged,
+                                                  cuda_blend_mixed.forward_mixed(bcfg, staged)))
             check_close(f"trained {name}: staged pieces vs render_batch", kern[0], out.image,
                         1e-6)
             stats[name] = dict(views=int(cams.view.shape[0]), pairs=int(out.num_pairs),
@@ -782,7 +851,9 @@ def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj):
         cams = motion_lib.subframe_cameras_batch(state.motion, [cam_idx], nu, proj, st.mcfg)
         flat = flat_preprocess((gm.render_inputs(state.params, st.gcfg), st.sh_degree), cams,
                                st.cs, st.rcfg, state.aux.active)
-        staged = cuda_blend.sort_stage(bcfg, *flat, bcfg.max_pairs)
+        compact = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)    # = sort_stage
+        staged = cuda_blend.sort_slots(
+            bcfg, cuda_blend.broadcast_fields(compact.ctable, compact.gauss_c), compact)
         C, D, T, n_con = cuda_blend_mixed.forward_mixed(bcfg, staged)
         images = tile_blend.compose(bcfg, C, D, T, n_con, bg)[0]
     lam_t = float(schedules.expon_lr(state.step, st.ocfg.lambda_t_smooth_init,
@@ -794,8 +865,8 @@ def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj):
     d_img = image_cotangent(torch, images, gt_linear, lam_t)
     dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
     dl_d = torch.zeros_like(D)
-    return dict(bcfg=bcfg, flat=flat, staged=staged, C=C, D=D, T=T, dl_pix=dl_pix, dl_d=dl_d,
-                P=flat[0].shape[0])
+    return dict(bcfg=bcfg, flat=flat, compact=compact, staged=staged, C=C, D=D, T=T,
+                dl_pix=dl_pix, dl_d=dl_d, P=flat[0].shape[0])
 
 
 def train_setup(torch, dev):
@@ -1024,6 +1095,80 @@ def phase_train_trained(torch, dev):
     return err_k2[1], err_k4[1]
 
 
+def k3_yardstick(torch, c, iters: int) -> dict:
+    """K3 on a compact table ``c``: timed beside its plain version and
+    ``index_select`` (the one PyTorch call for the same function), held
+    bitwise to the plain version, with its byte bound (4 B of rank and 64 B
+    out a slot, a 64 B table row an emitting Gaussian)."""
+    from deblurgs_tpu_torch.ops import cuda_blend
+
+    gauss_c = c.gauss_c.to(torch.int32)
+    ctable = c.ctable.contiguous()
+    max_pairs = gauss_c.shape[0]
+    got = cuda_blend.broadcast_fields(ctable, gauss_c)
+    if not torch.equal(got, cuda_blend.broadcast_fields_ref(ctable, gauss_c)):
+        raise AssertionError("K3 yardstick: differs from ctable[gauss_c].T")
+    lib_err = max_err(got, torch.index_select(ctable.t(), 1, gauss_c))
+    del got
+    ms = cuda_ms(lambda: cuda_blend.broadcast_fields(ctable, gauss_c), iters)
+    plain = cuda_ms(lambda: cuda_blend.broadcast_fields_ref(ctable, gauss_c), iters)
+    lib = cuda_ms(lambda: torch.index_select(ctable.t(), 1, gauss_c), iters)
+    n_emit = int(c.n_emit)
+    nbytes = 4 * max_pairs + 64 * n_emit + 64 * max_pairs
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                library_call="torch.index_select(ctable.t(), 1, gauss_c)",
+                library_max_abs_err=lib_err, max_pairs=max_pairs, n_emit=n_emit, bytes=nbytes,
+                bound_ms=bound, share_of_bound=bound / ms)
+
+
+def k1_schedule(torch, bcfg, staged, where: str) -> dict:
+    """K1's schedule walked on these lists (``forward_schedule``): its
+    outputs held bitwise to the kernel's, the (warp, pair) visits of the
+    per-warp exit and of the block exit of the row strips K1 walked before,
+    the visits the evaluations need at 128 pixels a warp, and the
+    evaluations."""
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed as cbm
+
+    *want, visits = cbm.forward_schedule(bcfg, staged.fields, staged.tile_start,
+                                         staged.tile_stop)
+    got = cbm.forward_mixed(bcfg, staged)
+    for name, g, w in zip(("C", "D", "final_T", "n_con"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K1 {where}: {name} differs from its schedule's walk")
+    v = {k: int(x) for k, x in visits.items()}
+    evals = v.pop("evaluations")
+    v["evaluations_over_128"] = evals / 128
+    return dict(evaluations=evals, visits=v)
+
+
+def sm_clock_during(torch, fn, iters: int):
+    """``fn``'s mean device time over ``iters`` calls (``cuda_ms``) and the
+    SM clock in MHz that nvidia-smi reported meanwhile, sampled every
+    100 ms."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, timeout=30).stdout.split()
+            if out:
+                samples.append(float(out[0]))
+            stop.wait(0.1)
+
+    thread = threading.Thread(target=sample)
+    thread.start()
+    try:
+        ms = cuda_ms(fn, iters)
+    finally:
+        stop.set()
+        thread.join()
+    return ms, samples
+
+
 def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0,
                     k4_err=0.0):
     """Each kernel timed beside its plain version and its bound, K3 and K1
@@ -1033,19 +1178,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, kernels
 
     bcfg, st, c = sl["bcfg"], sl["staged"], sl["compact"]
-    gauss_c = c.gauss_c.to(torch.int32)
-    ctable = c.ctable.contiguous()
-    max_pairs = gauss_c.shape[0]
-
-    # K3: the kernel, its plain version, and the one PyTorch call
-    k3_ms = cuda_ms(lambda: cuda_blend.broadcast_fields(ctable, gauss_c), 20)
-    k3_plain = cuda_ms(lambda: cuda_blend.broadcast_fields_ref(ctable, gauss_c), 20)
-    k3_lib = cuda_ms(lambda: torch.index_select(ctable.t(), 1, gauss_c), 20)
-    k3_lib_err = max_err(cuda_blend.broadcast_fields(ctable, gauss_c),
-                         torch.index_select(ctable.t(), 1, gauss_c))
-    n_emit = int(c.n_emit)
-    k3_bytes = 4 * max_pairs + 64 * n_emit + 64 * max_pairs
-    k3_bound = k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3 = k3_yardstick(torch, c, 20)
+    k3["previous_ms"] = K3_PREVIOUS_MS
 
     # K1: ranges as int32 so the timed call is the launch alone
     st32 = st._replace(tile_start=st.tile_start.to(torch.int32),
@@ -1056,20 +1190,26 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
     torch.cuda.synchronize()
     k1_plain = (time.perf_counter() - t0) * 1e3
-    *_, evals = cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop,
-                                             count_evals=True)
-    evals = int(evals)
+    k1 = k1_schedule(torch, bcfg, st32, "slice")
+    evals = k1["evaluations"]
     staged_pairs = int((st.tile_stop - st.tile_start).sum())
     px = bcfg.total_tiles * bcfg.tile_px
     out_bytes = px * (12 + 4 + 4 + (4 if bcfg.need_n_contrib else 0))
     k1_bytes = 40 * staged_pairs + 8 * bcfg.total_tiles + out_bytes
     k1_byte_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_op_ms = EVAL_OPS * evals / F32_OPS_PER_S * 1e3
-    emit("yardstick", K3=dict(ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib,
-                              library_call="torch.index_select(ctable.t(), 1, gauss_c)",
-                              library_max_abs_err=k3_lib_err, bytes=k3_bytes, bound_ms=k3_bound),
-         K1=dict(ms=k1_ms, plain_ms=k1_plain, staged_pairs=staged_pairs, evaluations=evals,
-                 bytes=k1_bytes, bytes_ms=k1_byte_ms, ops=EVAL_OPS * evals, ops_ms=k1_op_ms))
+    # K1 on the slice's scene staged at 16×16 tiles (one pixel a thread)
+    b16, st16 = sl["stage_at"](16)
+    st16 = st16._replace(tile_start=st16.tile_start.to(torch.int32),
+                         tile_stop=st16.tile_stop.to(torch.int32))
+    k1_t16 = k1_schedule(torch, b16, st16, "slice, tile 16")
+    k1_t16["ms"] = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(b16, st16), 10)
+    k1_t16["layout"] = cuda_blend_mixed.forward_layout(16, 16)
+    emit("yardstick", K3=k3,
+         K1=dict(ms=k1_ms, previous_ms=K1_PREVIOUS_MS["slice"], plain_ms=k1_plain,
+                 staged_pairs=staged_pairs, bytes=k1_bytes, bytes_ms=k1_byte_ms,
+                 ops=EVAL_OPS * evals, ops_ms=k1_op_ms, **k1),
+         K1_tile16=k1_t16)
     # K2 and K4 at the train step's shapes and image cotangent
     k = tr["k"]
     bcfg2, st2, P = k["bcfg"], k["staged"], k["P"]
@@ -1088,9 +1228,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                                   kargs[3], total)
     torch.cuda.synchronize()
     k2_plain = (time.perf_counter() - t0) * 1e3
-    *_, evals2 = cuda_blend_mixed.forward_ref(bcfg2, st2.fields, st2.tile_start, st2.tile_stop,
-                                              count_evals=True)
-    evals2 = int(evals2)
+    k1_train = k1_schedule(torch, bcfg2, st2, "train lists")
+    evals2 = k1_train["evaluations"]
     kept2 = int((st2.tile_stop - st2.tile_start).sum())
     max_pairs2 = st2.fields.shape[1]
     px2 = bcfg2.total_tiles * bcfg2.tile_px
@@ -1102,12 +1241,29 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k2_byte_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2_op_ms = EVAL_OPS * evals2 / F32_OPS_PER_S * 1e3
     k2_ptxas = ptxas_report(kernels.load_library().ptxas_log, "backward_mixed_kernel")
-    k2_sass = sass_pair_loop(torch)
+    k2_sass = sass_pair_loop("backward_mixed", "backward_mixed_kernelILb0E")
 
-    # K1 on the same lists (its bound on the train lists)
-    k1_train_ms = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(bcfg2, st2), 10)
+    # K1 on the same lists: its bound, and the issue rate its SASS pair loop
+    # needs over the (warp, pair) visits its schedule walks, at the SM clock
+    # sampled while it runs
+    k1_train_ms, clock = sm_clock_during(
+        torch, lambda: cuda_blend_mixed.forward_mixed(bcfg2, st2), 60)
     k1_train_bytes = 40 * kept2 + 8 * bcfg2.total_tiles + px2 * (12 + 4 + 4)
     k1_train_bound = max(k1_train_bytes / HBM_BYTES_PER_S * 1e3, k2_op_ms)
+    k1_sass = sass_pair_loop("forward_mixed", K1_MAIN_ENTRY)
+    k1_train["sass"] = k1_sass
+    k1_train["ptxas"] = ptxas_report(kernels.load_library().ptxas_log, "forward_mixed_kernel")
+    if clock and "pair_loop_instructions" in k1_sass:
+        mhz = float(np.median(clock))
+        sms = torch.cuda.get_device_properties(st2.fields.device).multi_processor_count
+        per_visit = k1_sass["pair_loop_instructions"] / K1_PAIRS_PER_LOOP
+        issue_ms = (k1_train["visits"]["warp_exit"] * per_visit
+                    / (sms * SM_ISSUE_PER_CLOCK * mhz * 1e6) * 1e3)
+        k1_train["issue_bound"] = dict(sm_clock_mhz=mhz, sm_clock_samples=clock, sms=sms,
+                                       instructions_per_visit=per_visit, ms=issue_ms,
+                                       share=issue_ms / k1_train_ms)
+    # K3 on the same lists
+    k3_train = k3_yardstick(torch, k["compact"], 10)
 
     # K4 on the main path (the staging's runs, sums to original rows) and by
     # rank array (the wrapper's sort), the plain version and index_add_
@@ -1142,10 +1298,12 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                  design_moves_recorded_ms=K2_DESIGN_MOVES_MS, total_pass_ms=total_ms, staged_pairs=kept2,
                  evaluations=evals2, bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms,
                  layout_fill_bytes=k2_fill, ptxas=k2_ptxas, sass=k2_sass),
-         K1_train_lists=dict(ms=k1_train_ms, bytes=k1_train_bytes, evaluations=evals2,
-                             bound_ms=k1_train_bound,
+         K1_train_lists=dict(ms=k1_train_ms, previous_ms=K1_PREVIOUS_MS["train_lists"],
+                             design_moves_recorded_ms=K1_DESIGN_MOVES_MS,
+                             bytes=k1_train_bytes, bound_ms=k1_train_bound,
                              bound_by="operations" if k2_op_ms >= k1_train_bytes
-                             / HBM_BYTES_PER_S * 1e3 else "bytes"),
+                             / HBM_BYTES_PER_S * 1e3 else "bytes", **k1_train),
+         K3_train_lists=k3_train,
          K4=dict(ms=k4_ms, previous_ms=K4_PREVIOUS_MS, by_rank_array_ms=k4_rank_ms,
                  plain_ms=k4_plain, library_ms=k4_lib,
                  library_call="torch.zeros((P+1, 10)).index_add_(0, rank, grads[:10].T)",
@@ -1157,8 +1315,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
         {"name": "K3 broadcast_fields", "route": "cuda",
          "source": "deblurgs_tpu_torch/csrc/broadcast_fields.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend.py:199", "launches": launches["K3"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": "bytes", "library_ms": k3_lib},
+         "max_abs_err": k3_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": k3["library_ms"]},
         {"name": "K1 forward_mixed", "route": "cuda",
          "source": "deblurgs_tpu_torch/csrc/forward_mixed.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend_mixed.py:510", "launches": launches["K1"],
@@ -1706,8 +1864,7 @@ def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
     k5_plain = plain_ms(lambda: cbl.forward_lockstep_ref(*args))
     total = cuda_blend_mixed.backward_total(bcfg, *kargs)
     k6_plain = plain_ms(lambda: cbl.backward_lockstep_ref(*args, kargs[2], kargs[3], total))
-    *_, evals = cbl.forward_lockstep_ref(*args, count_evals=True)
-    evals = int(evals)
+    evals = int(cuda_blend_mixed.forward_schedule(*args)[4]["evaluations"])
     staged_pairs = int((st.tile_stop - st.tile_start).sum())
     px = bcfg.num_tiles * bcfg.tile_px
     ops_ms = EVAL_OPS * evals / F32_OPS_PER_S * 1e3

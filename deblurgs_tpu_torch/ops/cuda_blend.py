@@ -57,13 +57,21 @@ _DEPTH_SENTINEL = 3e37
 
 def broadcast_fields_ref(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: ``ctable[gauss_c].T`` as a contiguous
-    [16, max_pairs] tensor."""
-    return ctable[gauss_c.long()].T.contiguous()
+    [16, max_pairs] tensor, with NaN in the column of a rank outside
+    [0, n_rows), as the kernel writes."""
+    rank = gauss_c.long()
+    n_rows = ctable.shape[0]
+    if n_rows == 0:
+        return ctable.new_full((ctable.shape[1], rank.shape[0]), float("nan"))
+    ok = (rank >= 0) & (rank < n_rows)
+    rows = ctable[torch.where(ok, rank, 0)]
+    return torch.where(ok[:, None], rows, float("nan")).T.contiguous()
 
 
 def broadcast_fields(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tensor:
     """[P, 16] compact table + [max_pairs] non-decreasing compact ranks →
-    [16, max_pairs] slot-space field rows, ``out[:, s] = ctable[gauss_c[s]]``.
+    [16, max_pairs] slot-space field rows, ``out[:, s] = ctable[gauss_c[s]]``
+    (NaN where a rank is outside [0, P)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/broadcast_fields.cu``) or raise.
@@ -79,6 +87,8 @@ def broadcast_fields(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tenso
     if gauss_c.dim() != 1:
         raise ValueError("broadcast_fields: gauss_c must be 1-D")
     ctable = ctable.contiguous()
+    if ctable.data_ptr() % 16:         # the kernel reads 16 B vectors of it
+        ctable = ctable.clone()
     gauss_c = gauss_c.to(torch.int32).contiguous()
     max_pairs = gauss_c.shape[0]
     out = torch.empty((NFIELD, max_pairs), dtype=torch.float32, device=ctable.device)

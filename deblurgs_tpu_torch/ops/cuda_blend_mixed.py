@@ -7,9 +7,12 @@ Counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``'s
 ``csrc/backward_mixed.cu``) walks each stacked tile's contiguous range of
 the depth-sorted pairs; its plain PyTorch version (:func:`forward_ref`,
 :func:`backward_ref`) runs the same gates, vectorised over tiles and
-pixels and looping over the position in the tile's list. K2 sums each
-pair's pixel terms over warp-sized pixel patches (:func:`patch_layout`),
-and its plain version adds them in that order (:func:`_patch_pair_sums`).
+pixels and looping over the position in the tile's list. Both kernels
+give each warp a compact pixel patch (:func:`patch_layout`; K1 picks its
+pixels a thread by tile size, :func:`forward_layout`). K2 sums each pair's
+pixel terms over the patches, and its plain version adds them in that order
+(:func:`_patch_pair_sums`). :func:`forward_schedule` walks K1's schedule,
+warp by warp, and counts the (warp, pair) visits it makes.
 
 Outputs are tiled exactly as the JAX function returns them:
 ``C [T, PX, 3]``, ``D [T, PX]``, ``final_T [T, PX]`` and ``n_con [T, PX]``
@@ -46,18 +49,13 @@ def _pixel_coords(cfg, tiles: torch.Tensor, dtype=torch.float32):
 
 
 def forward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
-                tile_stop: torch.Tensor, tiles: torch.Tensor | None = None,
-                count_evals: bool = False):
+                tile_stop: torch.Tensor, tiles: torch.Tensor | None = None):
     """Plain version of K1, on the stacked tiles ``tiles`` (default: all).
 
     Same arithmetic, in the same order, as the kernel, in the dtype of
     ``fields`` (float32 on the main path; float64 gives an exact yardstick).
     Tiles are walked in lockstep by position in their lists, longest list
     first, so step k only touches the tiles that still have a k-th pair.
-
-    With ``count_evals`` it also returns the number of (pixel, pair) gate
-    evaluations that front-to-back compositing of these lists needs: each
-    pixel evaluates its tile's pairs in order until it freezes.
     """
     dev, dtype = fields.device, fields.dtype
     if tiles is None:
@@ -76,7 +74,6 @@ def forward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
     done = torch.zeros((n, px_n), dtype=torch.bool, device=dev)
     n_con = torch.zeros((n, px_n), dtype=torch.int32, device=dev)
     counts = count[order].tolist()
-    evals = torch.zeros((), dtype=torch.int64, device=dev)
     m = n
     for k in range(counts[0] if n else 0):
         while counts[m - 1] <= k:
@@ -88,8 +85,6 @@ def forward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
         power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
         alpha = torch.clamp(col(5) * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
         Tm = T[:m]
-        if count_evals:
-            evals += torch.sum(~done[:m])
         elig = ~done[:m] & (power <= 0.0) & (alpha >= _ALPHA_MIN)
         test_T = Tm * (1.0 - alpha)
         if cfg.fast:
@@ -107,8 +102,102 @@ def forward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
 
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n, device=dev)
-    out = (C[inv], D[inv], T[inv], n_con[inv])
-    return out + (evals,) if count_evals else out
+    return C[inv], D[inv], T[inv], n_con[inv]
+
+
+def forward_schedule(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
+                     tile_stop: torch.Tensor, tiles: torch.Tensor | None = None):
+    """K1's schedule walked in its pixel layout: (C, D, final_T, n_con,
+    visits), the outputs bitwise :func:`forward_ref`'s.
+
+    Each warp holds its pixels of :func:`forward_layout` and walks its
+    tile's pairs until every one of them has frozen (the per-warp exit,
+    checked before every second pair: a warp live there walks the pair
+    after too); a warp with no pixels walks none. ``visits`` counts
+    (warp, pair) visits
+    as int64 tensors: ``warp_exit`` of this schedule, ``block_exit`` of the
+    schedule K1 had before (row strips p = thread + 256·k, all eight warps
+    walking every pair until the whole tile has frozen, checked once a
+    256-pair batch), ``composite`` the warp-exit visits in which some pixel
+    of the warp composites the pair, and the (pixel, pair) gate
+    ``evaluations`` that front-to-back compositing of these lists needs
+    (each pixel evaluates its tile's pairs in order until it freezes).
+    """
+    dev, dtype = fields.device, fields.dtype
+    if tiles is None:
+        tiles = torch.arange(tile_start.shape[0], device=dev)
+    tiles = tiles.to(torch.int64)
+    start = tile_start[tiles].to(torch.int64)
+    count = tile_stop[tiles].to(torch.int64) - start
+    n, px_n = tiles.shape[0], cfg.tile_px
+    order = torch.argsort(count, descending=True, stable=True)
+    start_s = start[order]
+    pix = forward_pixels(cfg.tile_w, cfg.tile_h).to(dev)     # [warps, LANES, ppt]
+    shape = (n,) + pix.shape
+
+    def gather(x):   # [n, PX] → [n, warps, LANES, ppt]
+        return torch.cat([x, x.new_zeros((n, 1))], dim=1)[:, pix]
+
+    pix_x, pix_y = (gather(c) for c in _pixel_coords(cfg, tiles[order], dtype))
+    T = torch.ones(shape, dtype=dtype, device=dev)
+    C = torch.zeros(shape + (3,), dtype=dtype, device=dev)
+    D = torch.zeros(shape, dtype=dtype, device=dev)
+    n_con = torch.zeros(shape, dtype=torch.int32, device=dev)
+    done = (pix == px_n).expand(shape).clone()
+    block_live = torch.ones(n, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    visits = {"warp_exit": zero, "block_exit": zero, "composite": zero, "evaluations": zero}
+    counts = count[order].tolist()
+    m = n
+    for k in range(counts[0] if n else 0):
+        while counts[m - 1] <= k:
+            m -= 1
+        live = ~done[:m]
+        if k % 2 == 0:
+            warp_live = live.flatten(2).any(-1)              # [m, warps]
+        else:
+            warp_live = warp_live[:m]
+        if k % (_LANES * _WARPS) == 0:
+            block_live[:m] &= live.flatten(1).any(-1)
+        visits["warp_exit"] = visits["warp_exit"] + warp_live.sum()
+        visits["block_exit"] = visits["block_exit"] + _WARPS * block_live[:m].sum()
+        visits["evaluations"] = visits["evaluations"] + live.sum()
+        f = fields[:10, start_s[:m] + k]
+        col = lambda i: f[i][:, None, None, None]   # noqa: E731
+        dx = col(0) - pix_x[:m]
+        dy = col(1) - pix_y[:m]
+        power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
+        alpha = torch.clamp(col(5) * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        Tm = T[:m]
+        # a stopped warp walks no pair: its pixels take no part
+        elig = live & warp_live[..., None, None] & (power <= 0.0) & (alpha >= _ALPHA_MIN)
+        test_T = Tm * (1.0 - alpha)
+        if cfg.fast:
+            contrib = elig
+        else:
+            stop = elig & (test_T < _T_EPS)
+            contrib = elig & ~stop
+            done[:m] |= stop
+        visits["composite"] = visits["composite"] + contrib.flatten(2).any(-1).sum()
+        w = torch.where(contrib, alpha * Tm, 0.0)
+        C[:m] += w[..., None] * f[6:9].T[:, None, None, None, :]
+        D[:m] += w * col(9)
+        T[:m] = torch.where(contrib, test_T, Tm)
+        if cfg.need_n_contrib:
+            n_con[:m] = torch.where(contrib, k + 1, n_con[:m])
+
+    # back to [n, PX] in the tiles' order (the dummy column PX takes the
+    # layout's empty places)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)
+    flat = pix.flatten()
+
+    def scatter(x, init):
+        out = torch.full((n, px_n + 1) + x.shape[4:], init, dtype=x.dtype, device=dev)
+        out[:, flat] = x.flatten(1, 3)
+        return out[inv, :px_n]
+
+    return (scatter(C, 0.0), scatter(D, 0.0), scatter(T, 1.0), scatter(n_con, 0), visits)
 
 
 def forward_mixed(cfg, staged: Staged):
@@ -136,10 +225,11 @@ def forward_mixed(cfg, staged: Staged):
     else:   # a broadcast zero: JAX's shape and values without a [T, PX] memset
         n_con = torch.zeros((), dtype=torch.int32, device=dev).expand(nt, px_n)
         n_ptr = None
+    ppt, patch_w, nx, _ = forward_layout(cfg.tile_w, cfg.tile_h)
     load_library().launch(
         "deblurgs_forward_mixed", fields.data_ptr(), fields.shape[1],
         start.data_ptr(), stop.data_ptr(), nt, cfg.num_tiles, cfg.tiles_x,
-        cfg.tile_w, cfg.tile_h, int(cfg.fast), C.data_ptr(), D.data_ptr(),
+        cfg.tile_w, cfg.tile_h, ppt, patch_w, nx, int(cfg.fast), C.data_ptr(), D.data_ptr(),
         T.data_ptr(), n_ptr, stream_ptr(dev))
     forward_mixed.launches += 1
     return C, D, T, n_con
@@ -196,42 +286,79 @@ def _warp_sums(a: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def patch_layout(tile_w: int, tile_h: int) -> tuple[int, int, int, int]:
-    """K2's warp patches of a tile_w × tile_h tile: (patch_w, patch_h, nx, n).
+def patch_layout(tile_w: int, tile_h: int, ppt: int = _PPT) -> tuple[int, int, int, int]:
+    """Warp patches of a tile_w × tile_h tile at ``ppt`` pixels a thread
+    (K2's at 4): (patch_w, patch_h, nx, n).
 
-    A warp owns patch_w × patch_h pixels (patch_h = 32 / patch_w · 4): lane l
-    takes column l % patch_w and rows l / patch_w + k·(32 / patch_w), k < 4.
-    Patches tile the tile nx across, n in all; warp w takes patch (w % nx,
-    w // nx). 16×8 patches where the tile is 16 px wide or more (32×32 → 2×4
-    patches), else the widest power of two that fits. The kernel needs
-    n <= 8; a tile no width fits (a very wide, flat tile) is summed in this
-    order only by the plain version.
+    A warp owns patch_w × patch_h pixels (patch_h = 32 / patch_w · ppt):
+    lane l takes column l % patch_w and rows l / patch_w + k·(32 / patch_w),
+    k < ppt. Patches tile the tile nx across, n in all; warp w takes patch
+    (w % nx, w // nx). 16-wide patches where the tile is 16 px wide or more
+    (32×32 at four pixels → 2×4 patches of 16×8), else the widest power of
+    two that fits. The kernels need n <= 8; K2 refuses a tile no width fits
+    (a very wide, flat tile), whose sums only the plain version takes in
+    this order.
     """
     first = 16 if tile_w >= 16 else 1 << (tile_w.bit_length() - 1)
     shapes = []
     for pw in dict.fromkeys((first, 32, 8, 4, 2, 1)):
-        ph = _LANES // pw * _PPT
+        ph = _LANES // pw * ppt
         nx = -(-tile_w // pw)
         shapes.append((pw, ph, nx, nx * -(-tile_h // ph)))
     return next((sh for sh in shapes if sh[3] <= _WARPS), shapes[0])
 
 
-def _patch_xy(tile_w: int, tile_h: int):
-    """Column [warps, LANES, 1] and rows [warps, LANES, 4] in the tile of each
-    (warp, lane, k) of K2's patch layout (:func:`patch_layout`)."""
-    pw, ph, nx, n = patch_layout(tile_w, tile_h)
+@functools.lru_cache(maxsize=None)
+def forward_layout(tile_w: int, tile_h: int) -> tuple[int, int, int, int]:
+    """K1's pixel layout of a tile_w × tile_h tile (at most 1024 pixels):
+    (ppt, patch_w, nx, n).
+
+    ``ppt`` pixels a thread, the fewest of 1, 2, 4 whose 256 threads cover
+    the tile, in :func:`patch_layout`'s warp patches (a larger ppt where the
+    patches of the smaller need more than 8 warps): 16×2 patches for a
+    16×16 tile, 16×8 for 32×32. A tile no patches fit takes row strips,
+    pixel p = thread + 256·k at four pixels a thread: patch_w = nx = n = 0.
+    """
+    px = tile_w * tile_h
+    if not 0 < px <= _MAX_TILE_PX:
+        raise ValueError(f"K1 takes tiles of 1 to {_MAX_TILE_PX} pixels, got {tile_w}x{tile_h}")
+    for ppt in (1, 2, 4):
+        if px <= _LANES * _WARPS * ppt:
+            pw, _, nx, n = patch_layout(tile_w, tile_h, ppt)
+            if n <= _WARPS:
+                return ppt, pw, nx, n
+    return _PPT, 0, 0, 0
+
+
+def _patch_xy(tile_w: int, tile_h: int, ppt: int = _PPT):
+    """Column [warps, LANES, 1] and rows [warps, LANES, ppt] in the tile of
+    each (warp, lane, k) of the patch layout (:func:`patch_layout`)."""
+    pw, ph, nx, n = patch_layout(tile_w, tile_h, ppt)
     w = torch.arange(n)[:, None, None]
     lane = torch.arange(_LANES)[None, :, None]
-    k = torch.arange(_PPT)[None, None, :]
+    k = torch.arange(ppt)[None, None, :]
     return (w % nx) * pw + lane % pw, (w // nx) * ph + lane // pw + k * (_LANES // pw)
 
 
 @functools.lru_cache(maxsize=None)
-def _patch_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
-    """[warps, LANES, 4] tile pixel of each (warp, lane, k) of K2's patch
+def _patch_pixels(tile_w: int, tile_h: int, ppt: int = _PPT) -> torch.Tensor:
+    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of the patch
     layout, or tile_px where there is none."""
-    x, y = _patch_xy(tile_w, tile_h)
+    x, y = _patch_xy(tile_w, tile_h, ppt)
     return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x, tile_w * tile_h)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of K1's layout
+    (:func:`forward_layout`), or tile_px where there is none."""
+    ppt, pw, _, _ = forward_layout(tile_w, tile_h)
+    if pw:
+        return _patch_pixels(tile_w, tile_h, ppt)
+    p = torch.arange(_WARPS * _LANES).reshape(_WARPS, _LANES, 1) + \
+        _WARPS * _LANES * torch.arange(ppt)
+    px = tile_w * tile_h
+    return torch.where(p < px, p, px)
 
 
 def _patch_gather(cfg, x: torch.Tensor) -> torch.Tensor:

@@ -42,8 +42,8 @@ _f32 = ctypes.c_float
 # void*); each returns the cudaError_t of its launch
 _SIGNATURES = {
     "deblurgs_broadcast_fields": [_vp, _vp, _vp, _i64, _i64, _vp],
-    "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
-                               _i32, _i32, _vp, _vp, _vp, _vp, _vp],
+    "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
+                               _i32, _i32, _i32, _vp, _vp, _vp, _vp, _vp],
     "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
                                 _i32, _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp],
     "deblurgs_reduce_sorted": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],

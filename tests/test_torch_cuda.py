@@ -49,9 +49,9 @@ def assert_scaled_close(got, want, atol=2e-5):
     torch.testing.assert_close(got / scale, want / scale, atol=atol, rtol=0)
 
 
-def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False):
+def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False, tile_w=16, tile_h=16):
     """A seeded scene seen by F sub-frame cameras, preprocessed on the card
-    and flattened as render_batch flattens it."""
+    at tile_w × tile_h tiles and flattened as render_batch flattens it."""
     rng = np.random.default_rng(0)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)  # noqa: E731
     q = rng.standard_normal((n, 4))
@@ -69,10 +69,11 @@ def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False):
         torch.Generator(device=card).manual_seed(0), init_noise=0.02)
     cams = motion_lib.subframe_cameras(motion, 0, motion_lib.sample_nu(motion, 0), proj)
     pre = pre_lib.preprocess(means, cov6, shs, None, opac, cams, cs, sh_degree=1,
-                             tile_w=16, tile_h=16, tight_rect=True)
+                             tile_w=tile_w, tile_h=tile_h, tight_rect=True)
     flat = [x.reshape((F * n,) + x.shape[2:]) for x in (
         pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth, pre.rect, pre.tiles_touched)]
-    cfg = tile_blend.BlendConfig(width=W, height=H, max_pairs=1 << 17, n_images=F,
+    cfg = tile_blend.BlendConfig(width=W, height=H, tile_w=tile_w, tile_h=tile_h,
+                                 max_pairs=1 << 17, n_images=F,
                                  need_n_contrib=need_n_contrib, fast=fast, layout="mixed")
     return cfg, flat
 
@@ -88,18 +89,47 @@ def test_broadcast_kernel_matches_plain(card):
     assert torch.equal(got, cuda_blend.broadcast_fields_ref(ctable, gauss_c))
 
 
+@pytest.mark.parametrize("max_pairs", [1, 3, 130, 1027, 4096])
+def test_broadcast_kernel_odd_sizes_and_ranks_out_of_range(card, max_pairs):
+    """K3 at max_pairs not a multiple of 4 or of 128, with ranks below 0
+    and at or past n_rows, also from a view 4 B off 16 B alignment: the
+    plain version's values, NaN where the rank is out of range."""
+    rng = np.random.default_rng(max_pairs)
+    n_rows = 500
+    ctable = torch.from_numpy(rng.standard_normal((n_rows, 16)).astype(np.float32)).to(card)
+    ranks = np.sort(rng.integers(-2, n_rows + 3, max_pairs + 1)).astype(np.int32)
+    ranks[-1] = n_rows          # at least one rank past the table
+    gauss_c = torch.from_numpy(ranks).to(card)
+    for g in (gauss_c[1:], gauss_c[:-1]):
+        got = cuda_blend.broadcast_fields(ctable, g)
+        want = cuda_blend.broadcast_fields_ref(ctable, g)
+        bad = (g < 0) | (g >= n_rows)
+        assert torch.equal(torch.isnan(got), bad.expand(16, -1))
+        assert torch.equal(got[:, ~bad], want[:, ~bad])
+        assert bool(torch.isnan(want[:, bad]).all())
+
+
+K1_TILES = [(32, 32), (16, 16), (8, 8), (16, 8), (40, 20)]
+
+
 @pytest.mark.parametrize("need_n_contrib,fast", [(True, False), (False, False), (False, True)],
                          ids=["n_contrib", "plain", "fast"])
-def test_composite_kernel_matches_plain(card, need_n_contrib, fast):
-    cfg, flat = _staged_inputs(card, need_n_contrib=need_n_contrib, fast=fast)
+@pytest.mark.parametrize("tile_w,tile_h", K1_TILES, ids=[f"{w}x{h}" for w, h in K1_TILES])
+def test_composite_kernel_matches_plain(card, tile_w, tile_h, need_n_contrib, fast):
+    """K1 bit for bit against its plain version at tile 32, 16 and 8, a
+    non-square tile and one no warp patches fit (row strips), n_con on and
+    off and ``fast``; the launch is counted."""
+    cfg, flat = _staged_inputs(card, need_n_contrib=need_n_contrib, fast=fast, tile_w=tile_w,
+                               tile_h=tile_h)
     staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
     assert int(staged.total) <= cfg.max_pairs
+    before = cuda_blend_mixed.forward_mixed.launches
     got = cuda_blend_mixed.forward_mixed(cfg, staged)
+    assert cuda_blend_mixed.forward_mixed.launches == before + 1
     want = cuda_blend_mixed.forward_ref(cfg, staged.fields, staged.tile_start, staged.tile_stop)
     torch.cuda.synchronize()
-    for x, y in zip(want[:3], got[:3]):
-        torch.testing.assert_close(y, x, atol=1e-5, rtol=1e-4)
-    assert torch.equal(got[3], want[3])
+    for x, y in zip(want, got):
+        assert torch.equal(y, x)
     if need_n_contrib:
         assert int(got[3].max()) > 1
 
