@@ -47,9 +47,11 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
 9. train_lockstep  ``train_step`` with ``layout="lockstep"`` and
               ``batched_render=False`` on the parity scene: two steps through
               K5, K6 and K4 per sub-frame, the first against the plain path;
-10. lockstep_parity  K5 and K6 against their plain versions on one view of
-              the parity scene, bit for bit (tile 16 and 32, need_n_contrib
-              on and off), K5 against K1 on the same list, two K6 calls equal;
+10. lockstep_parity  K5 and K6 (K1's and K2's kernels on one view's tiles)
+              against their plain versions on one view of the parity scene,
+              bit for bit (tile 16 and 32, need_n_contrib on and off), K5
+              against K1 and K6 against K2 on the same list, two K6 calls
+              equal;
 11. eval      held-out evaluation at full width (1920×1080, 100k Gaussians,
               SH 2, lockstep, tile 16): a synthetic run written with the
               port's writers, ``cli.evaluate.main`` on it and
@@ -68,8 +70,13 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               outputs held bitwise to the kernel's) and the issue rate they
               need at the SM clock sampled meanwhile, each redesigned kernel's
               time before its redesign (and K1's and K2's after each design
-              move, as recorded); K5 and K6 at the eval phase's shapes, with
-              K1 and K2 on the same lists.
+              move, as recorded), and beside their times before this
+              design's cull (as recorded); K5 and K6 at the
+              eval phase's shapes beside their times before the redesign,
+              with K1 and K2 on the same lists without the warp cull, K2 in
+              its other layout, the (warp, pair) visits the cull skips (and
+              a check that none of them composites), the longest list's
+              block alone, and K6's registers and SASS pair loop.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -131,7 +138,8 @@ K1_DESIGN_MOVES_MS = {
     "dropped: six blocks an SM": (12.77, 24.81, 6.25),
     "dropped: 8 pixels a thread, 128 threads": (11.36, 22.09, 5.51),
 }
-K1_MAIN_ENTRY = "forward_mixed_kernelILi4ELb1ELb0ELb0E"   # <4 px, patches, exact, no n_con>
+# <4 px, patches, exact, no n_con, no cull>
+K1_MAIN_ENTRY = "forward_mixed_kernelILi4ELb1ELb0ELb0ELb0E"
 K1_PAIRS_PER_LOOP = 2         # K1's pair loop walks two pairs an iteration
 SM_ISSUE_PER_CLOCK = 4        # warp instructions an SM issues a cycle (four schedulers)
 # K2 on the same card after each design move of its redesign, as this
@@ -142,6 +150,23 @@ K2_DESIGN_MOVES_MS = {"patches, moments, fused total, slot-major rows": 35.88,
                       "+ composited-pair record": 41.33, "+ reduce-scatter": 39.48,
                       "+ three blocks an SM": 33.63, "+ branch-free pixels": 33.31,
                       "without cull and record (the design)": 32.06}
+K2_MAIN_ENTRY = "backward_mixed_kernelILb1ELb0ELb0E"   # <patches, exact, no cull>
+# K1 and K2 on the train step's lists before the warp cull was added, on the
+# same card (PERF.md's kernel table): the main path must not move
+K1_NO_CULL_TREE_MS, K2_NO_CULL_TREE_MS = 11.443, 32.52
+# K5 and K6 before their redesign, on the eval phase's lists on the same card
+# (PERF.md's kernel table)
+K5_PREVIOUS_MS, K6_PREVIOUS_MS = 0.269, 1.104
+K6_ENTRY = "backward_mixed_kernelILb1ELb0ELb1E"       # <patches, exact, cull>
+# K5 and K6 on the eval phase's lists on the same card after each design move
+# of their redesign, as this script's yardstick timed them while the moves
+# were in the tree (PERF.md's Findings)
+K5_DESIGN_MOVES_MS = {"K1's kernel, one pixel a thread in 16×2 patches": 0.2269,
+                      "+ warp cull, the box tested before each visit": 0.2067}
+K6_DESIGN_MOVES_MS = {"K2's kernel in K1's layout, one pixel a thread, 8 warps": 0.7561,
+                      "+ warp cull, the box tested before each visit (8 warps)": 0.5905,
+                      "four pixels a thread, one warp a 16×8 patch (2 warps)": 0.5566,
+                      "+ warp cull, the box tested before each visit (2 warps)": 0.4926}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1240,8 +1265,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k2_fill = 64 * max_pairs2 - 40 * kept2
     k2_byte_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2_op_ms = EVAL_OPS * evals2 / F32_OPS_PER_S * 1e3
-    k2_ptxas = ptxas_report(kernels.load_library().ptxas_log, "backward_mixed_kernel")
-    k2_sass = sass_pair_loop("backward_mixed", "backward_mixed_kernelILb0E")
+    k2_ptxas = ptxas_report(kernels.load_library().ptxas_log, K2_MAIN_ENTRY)
+    k2_sass = sass_pair_loop("backward_mixed", K2_MAIN_ENTRY)
 
     # K1 on the same lists: its bound, and the issue rate its SASS pair loop
     # needs over the (warp, pair) visits its schedule walks, at the SM clock
@@ -1252,7 +1277,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k1_train_bound = max(k1_train_bytes / HBM_BYTES_PER_S * 1e3, k2_op_ms)
     k1_sass = sass_pair_loop("forward_mixed", K1_MAIN_ENTRY)
     k1_train["sass"] = k1_sass
-    k1_train["ptxas"] = ptxas_report(kernels.load_library().ptxas_log, "forward_mixed_kernel")
+    k1_train["ptxas"] = ptxas_report(kernels.load_library().ptxas_log, K1_MAIN_ENTRY)
     if clock and "pair_loop_instructions" in k1_sass:
         mhz = float(np.median(clock))
         sms = torch.cuda.get_device_properties(st2.fields.device).multi_processor_count
@@ -1294,11 +1319,13 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k4_bytes = (4 + 40) * run_slots + (8 + 4 + 64) * P
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
     emit("yardstick_backward",
-         K2=dict(ms=k2_ms, previous_ms=K2_PREVIOUS_MS, plain_ms=k2_plain,
+         K2=dict(ms=k2_ms, previous_ms=K2_PREVIOUS_MS, before_cull_ms=K2_NO_CULL_TREE_MS,
+                 plain_ms=k2_plain,
                  design_moves_recorded_ms=K2_DESIGN_MOVES_MS, total_pass_ms=total_ms, staged_pairs=kept2,
                  evaluations=evals2, bytes=k2_bytes, bytes_ms=k2_byte_ms, ops=EVAL_OPS * evals2, ops_ms=k2_op_ms,
                  layout_fill_bytes=k2_fill, ptxas=k2_ptxas, sass=k2_sass),
          K1_train_lists=dict(ms=k1_train_ms, previous_ms=K1_PREVIOUS_MS["train_lists"],
+                             before_cull_ms=K1_NO_CULL_TREE_MS,
                              design_moves_recorded_ms=K1_DESIGN_MOVES_MS,
                              bytes=k1_train_bytes, bound_ms=k1_train_bound,
                              bound_by="operations" if k2_op_ms >= k1_train_bytes
@@ -1404,8 +1431,9 @@ def check_k6(torch, where: str, bcfg, staged, bg, T, dl_pix, dl_d, C, D, got, ti
 
 def phase_lockstep_parity(torch, dev):
     """K5 and K6 against their plain versions on one view of the parity
-    scene, tile 16 and 32, need_n_contrib on and off; K5 against K1 on
-    the same list; two K6 calls bitwise equal."""
+    scene, tile 16 and 32, need_n_contrib on and off (uncut lists with the
+    warp cull, tile-culled lists without); K5 against K1 and K6 against K2
+    on the same list; two K6 calls bitwise equal."""
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep as cbl
     from deblurgs_tpu_torch.ops import cuda_blend_mixed
     from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
@@ -1430,9 +1458,9 @@ def phase_lockstep_parity(torch, dev):
             torch.cuda.synchronize()
             name = f"t{tile}_{'n_contrib' if need else 'cull'}"
             k5_err = max(k5_err, check_k5(torch, f"parity {name}", bcfg, st, got))
-            k1 = cuda_blend_mixed.forward_mixed(
-                RasterizeConfig(tile_w=tile, tile_h=tile, max_pairs=1 << 17,
-                                need_n_contrib=need).blend_config(cs), st)
+            mixed = RasterizeConfig(tile_w=tile, tile_h=tile, max_pairs=1 << 17,
+                                    need_n_contrib=need).blend_config(cs)
+            k1 = cuda_blend_mixed.forward_mixed(mixed, st)
             if not all(torch.equal(a, b) for a, b in zip(got, k1)):
                 raise AssertionError(f"K5 {name}: differs from K1 on the same list")
             C, D, T, _ = got
@@ -1443,9 +1471,12 @@ def phase_lockstep_parity(torch, dev):
                                           dl_d, C, D, pg))
             if not torch.equal(pg, cbl.backward_lockstep(bcfg, st, bg, T, dl_pix, dl_d, C, D)):
                 raise AssertionError(f"K6 {name}: two calls differ")
+            if not torch.equal(pg, cuda_blend_mixed.backward_mixed(mixed, st, bg, T, dl_pix, dl_d,
+                                                                   C, D)):
+                raise AssertionError(f"K6 {name}: differs from K2 on the same list")
             errs[name] = dict(pairs=int(st.total), max_per_tile=int(st.max_per_tile),
                               n_con_max=int(got[3].max()), K5_equals_K1=True,
-                              K6_bitwise_repeat=True)
+                              K6_equals_K2=True, K6_bitwise_repeat=True)
     emit("lockstep_parity", size=[W, H], gaussians=N, K5_max_abs_err=k5_err,
          K6_max_abs_err=k6_err, cases=errs)
     return k5_err, k6_err
@@ -1835,37 +1866,74 @@ def phase_eval(torch, dev):
 
 def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
     """K5 and K6 timed at the eval phase's shapes beside their plain
-    versions and bounds (reckoned as for K1 and K2), and K1/K2 on the same
-    lists; returns their entries of the kernels line."""
+    versions, bounds (reckoned as for K1 and K2), times before the
+    redesign and after each design move (as recorded); on the same lists K1
+    and K2 without the warp cull (the floor the cull must beat), held
+    bitwise to their plain versions; the (warp, pair) visits of K1's
+    schedule there, those the cull skips and a check that none of them
+    composites; the longest list and one block's time on it alone; K6's
+    registers and SASS pair loop. Returns their entries of the kernels
+    line."""
     from deblurgs_tpu_torch.ops import cuda_blend_lockstep as cbl
-    from deblurgs_tpu_torch.ops import cuda_blend_mixed
-    from deblurgs_tpu_torch.ops.tile_blend import BlendConfig
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed as cbm
+    from deblurgs_tpu_torch.ops import kernels
 
     bcfg, st = ev["bcfg"], ev["staged"]
     st = st._replace(tile_start=st.tile_start.to(torch.int32),
                      tile_stop=st.tile_stop.to(torch.int32))
-    mixed = BlendConfig(**{**bcfg.__dict__, "layout": "mixed"})
     C, D, T, _ = ev["out"]
     bg = torch.zeros(3, device=st.fields.device)
     kargs = (bg, T, ev["dl_pix"], ev["dl_d"], C, D)
+    args = (bcfg, st.fields, st.tile_start, st.tile_stop)
+    total = cbm.backward_total(bcfg, *kargs)
 
-    def plain_ms(fn) -> float:
+    def plain_ms(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3, out
 
-    k5_ms = cuda_ms(lambda: cbl.forward_lockstep(bcfg, st), 10)
-    k1_ms = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(mixed, st), 10)
-    k6_ms = cuda_ms(lambda: cbl.backward_lockstep(bcfg, st, *kargs), 10)
-    k2_ms = cuda_ms(lambda: cuda_blend_mixed.backward_mixed(mixed, st, *kargs), 10)
-    args = (bcfg, st.fields, st.tile_start, st.tile_stop)
-    k5_plain = plain_ms(lambda: cbl.forward_lockstep_ref(*args))
-    total = cuda_blend_mixed.backward_total(bcfg, *kargs)
-    k6_plain = plain_ms(lambda: cbl.backward_lockstep_ref(*args, kargs[2], kargs[3], total))
-    evals = int(cuda_blend_mixed.forward_schedule(*args)[4]["evaluations"])
-    staged_pairs = int((st.tile_stop - st.tile_start).sum())
+    k5_ms = cuda_ms(lambda: cbl.forward_lockstep(bcfg, st), 20)
+    k6_ms = cuda_ms(lambda: cbl.backward_lockstep(bcfg, st, *kargs), 20)
+    k5_plain, want5 = plain_ms(lambda: cbl.forward_lockstep_ref(*args))
+    k6_plain, want6 = plain_ms(lambda: cbl.backward_lockstep_ref(*args, kargs[2], kargs[3], total))
+    # K1 and K2 on the same lists without the cull, held bitwise to the
+    # plain versions, then timed
+    got = cbm.launch_forward("K1", bcfg, st, cull=False)
+    if not all(torch.equal(a, b) for a, b in zip(got, want5)):
+        raise AssertionError("K1 without the cull: differs from the plain version on the eval "
+                             "lists")
+    if not torch.equal(cbm.launch_backward("K2", bcfg, st, *kargs, cull=False), want6):
+        raise AssertionError("K2 without the cull: differs from the plain version on the eval "
+                             "lists")
+    k1_ms = cuda_ms(lambda: cbm.launch_forward("K1", bcfg, st, cull=False), 20)
+    k2_ms = cuda_ms(lambda: cbm.launch_backward("K2", bcfg, st, *kargs, cull=False), 20)
+    # visits of K1's schedule (the outputs held bitwise to K5's)
+    *sched, visits = cbm.forward_schedule(*args)
+    if not all(torch.equal(a, b) for a, b in zip(sched, want5)):
+        raise AssertionError("K1's schedule differs from the plain version on the eval lists")
+    v = {k: int(x) for k, x in visits.items()}
+    if v["culled_composite"]:
+        raise AssertionError(f"the warp cull skipped {v['culled_composite']} visits that "
+                             "composite")
+    v["composite_share"] = v["composite"] / v["warp_exit"]
+    v["culled_share"] = v["culled"] / v["warp_exit"]
+    # the longest list's block alone: every other range emptied, less the
+    # launch with every range emptied
+    counts = st.tile_stop - st.tile_start
+    longest = int(torch.argmax(counts))
+    empty = st._replace(tile_stop=st.tile_start.clone())
+    alone = empty._replace(tile_stop=torch.where(
+        torch.arange(counts.shape[0], device=counts.device) == longest, st.tile_stop,
+        st.tile_start))
+    tail = {}
+    for name, fn in (("K5", lambda x: cbl.forward_lockstep(bcfg, x)),
+                     ("K6", lambda x: cbl.backward_lockstep(bcfg, x, *kargs))):
+        t_alone, t_empty = cuda_ms(lambda: fn(alone), 20), cuda_ms(lambda: fn(empty), 20)
+        tail[name] = dict(alone_ms=t_alone, empty_ms=t_empty, block_ms=t_alone - t_empty)
+    evals = v["evaluations"]
+    staged_pairs = int(counts.sum())
     px = bcfg.num_tiles * bcfg.tile_px
     ops_ms = EVAL_OPS * evals / F32_OPS_PER_S * 1e3
     k5_bytes = (40 * staged_pairs + 8 * bcfg.num_tiles
@@ -1874,23 +1942,31 @@ def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
     k6_fill = 64 * st.fields.shape[1] - 40 * staged_pairs    # as K2's (phase_yardstick)
     k5_bound = max(k5_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
     k6_bound = max(k6_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
-    emit("yardstick_lockstep",
-         K5=dict(ms=k5_ms, plain_ms=k5_plain, K1_same_list_ms=k1_ms, staged_pairs=staged_pairs,
-                 evaluations=evals, bytes=k5_bytes, bytes_ms=k5_bytes / HBM_BYTES_PER_S * 1e3,
-                 ops=EVAL_OPS * evals, ops_ms=ops_ms, bound_ms=k5_bound),
-         K6=dict(ms=k6_ms, plain_ms=k6_plain, K2_same_list_ms=k2_ms, staged_pairs=staged_pairs,
-                 evaluations=evals, bytes=k6_bytes, bytes_ms=k6_bytes / HBM_BYTES_PER_S * 1e3,
+    emit("yardstick_lockstep", K1_layout=cbm.forward_layout(bcfg.tile_w, bcfg.tile_h),
+         K2_layout=cbm.backward_layout(bcfg.tile_w, bcfg.tile_h),
+         staged_pairs=staged_pairs, max_per_tile=int(counts.max()), longest_tile=longest,
+         mean_per_tile=staged_pairs / bcfg.num_tiles, visits=v, longest_block=tail,
+         K5=dict(ms=k5_ms, previous_ms=K5_PREVIOUS_MS, plain_ms=k5_plain,
+                 K1_no_cull_ms=k1_ms, design_moves_recorded_ms=K5_DESIGN_MOVES_MS,
+                 evaluations=evals, bytes=k5_bytes,
+                 bytes_ms=k5_bytes / HBM_BYTES_PER_S * 1e3, ops=EVAL_OPS * evals,
+                 ops_ms=ops_ms, bound_ms=k5_bound),
+         K6=dict(ms=k6_ms, previous_ms=K6_PREVIOUS_MS, plain_ms=k6_plain, K2_no_cull_ms=k2_ms,
+                 design_moves_recorded_ms=K6_DESIGN_MOVES_MS, evaluations=evals,
+                 bytes=k6_bytes, bytes_ms=k6_bytes / HBM_BYTES_PER_S * 1e3,
                  ops=EVAL_OPS * evals, ops_ms=ops_ms, bound_ms=k6_bound,
-                 layout_fill_bytes=k6_fill))
+                 layout_fill_bytes=k6_fill,
+                 ptxas=ptxas_report(kernels.load_library().ptxas_log, K6_ENTRY),
+                 sass=sass_pair_loop("backward_mixed", K6_ENTRY)))
     by = lambda b: "bytes" if b / HBM_BYTES_PER_S * 1e3 >= ops_ms else "operations"  # noqa: E731
     return [
         {"name": "K5 forward_lockstep", "route": "cuda",
-         "source": "deblurgs_tpu_torch/csrc/forward_lockstep.cu",
+         "source": "deblurgs_tpu_torch/csrc/forward_mixed.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend.py:765", "launches": ev["launches"]["K5"],
          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
          "bound_by": by(k5_bytes), "library_ms": None},
         {"name": "K6 backward_lockstep", "route": "cuda",
-         "source": "deblurgs_tpu_torch/csrc/backward_lockstep.cu",
+         "source": "deblurgs_tpu_torch/csrc/backward_mixed.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend.py:951", "launches": ev["launches"]["K6"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
          "bound_by": by(k6_bytes), "library_ms": None},

@@ -15,7 +15,7 @@ hot spots:
   its backward K2 (counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``);
 - ``ops/cuda_blend_lockstep.py``: the same function on one view, K5 and its
   backward K6 (``layout="lockstep"``; counterpart of ``pallas_blend.py``'s
-  ``forward`` and ``backward``);
+  ``forward`` and ``backward``), which launch K1's and K2's kernels;
 - ``train/step.py``: the train step (counterpart of
   ``deblurgs_tpu/train/step.py``), gradients by autograd around K2 and K4.
 

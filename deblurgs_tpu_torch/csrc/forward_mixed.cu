@@ -1,13 +1,15 @@
-// K1: front-to-back alpha compositing of each tile's depth-sorted pairs.
+// K1: front-to-back alpha compositing of each tile's depth-sorted pairs;
+// K5 on one view's tiles (layout="lockstep").
 //
 // Replaces deblurgs_tpu/ops/pallas_blend_mixed.py::forward_mixed
 // (_forward_kernel, _forward_chunk_body, _mixed_core; pallas_blend_mixed.py:
-// 295-589). The TPU kernel re-derived the sequential transmittance
-// recurrence as segmented prefix products on the MXU over 128-pair chunks
-// that span several tiles, with one-hot output routing. On Hopper the
-// reference design fits (forward.cu:273-392): one thread block per stacked
-// tile, a per-pixel front-to-back loop, the tile's pair range staged through
-// shared memory in batches.
+// 295-589) and, on one view, deblurgs_tpu/ops/pallas_blend.py::forward
+// (_forward_kernel, _chunk_core; pallas_blend.py:765-821). The TPU
+// kernels re-derived the sequential transmittance recurrence as segmented
+// prefix products on the MXU over 128-pair chunks, with one-hot output
+// routing. On Hopper the reference design fits (forward.cu:273-392): one
+// thread block per stacked tile, a per-pixel front-to-back loop, the tile's
+// pair range staged through shared memory in batches.
 //
 // Per pixel and pair (gates of _mixed_core :314-361 and forward.cu:337-341):
 //   power = -0.5 (a dx² + c dy²) - b dx dy,   dx = x - px, dy = y - py
@@ -46,6 +48,16 @@
 //   all eight warps busy with 16×2 patches.
 // - __launch_bounds__ for five blocks (40 warps) an SM: 48 registers and a
 //   few spilled bytes, faster than four blocks at 64 registers.
+// - CULL, where the staging left the lists uncut (need_n_contrib on, or the
+//   tile cull off; evaluation): the thread that stages a pair also stages
+//   its cull box (common.cuh::cull_box), and a warp skips each pair whose
+//   box misses its pixels' rectangle. No pixel of the warp could have
+//   composited that pair, so T, C, D and n_con are what the plain version
+//   gives (it adds w = 0 there). The warp takes 32 pairs at a time: each
+//   lane tests one box, a ballot marks the pairs to walk, and a skipped
+//   pair costs the warp nothing more; its exit vote comes once a chunk.
+//   On the train step's tile-culled lists most visits composite
+//   something, and the cull stays compiled out.
 // A tile the patches cannot cover with eight warps (a very wide, flat or
 // odd tile) takes the row strips p = t + 256 k, with dx a pixel.
 //
@@ -69,7 +81,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // COLUMN: warp patches of patch_w × (32 / patch_w · PPT) pixels, nx across
 // the tile; else row strips p = t + 256 k.
-template <int PPT, bool COLUMN, bool FAST, bool NEED_N>
+template <int PPT, bool COLUMN, bool FAST, bool NEED_N, bool CULL>
 __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
     const float* __restrict__ fields, int64_t max_pairs,
     const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_stop,
@@ -77,6 +89,7 @@ __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
     float* __restrict__ out_c, float* __restrict__ out_d, float* __restrict__ out_t,
     int32_t* __restrict__ out_n) {
   __shared__ __align__(16) float s_f[BATCH][SROW];
+  __shared__ float4 s_box[CULL ? BATCH : 1];
 
   const int tile = blockIdx.x;
   const int img_tile = tile % num_tiles;        // stacked views: per-image tile
@@ -117,6 +130,8 @@ __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
     if (k < NX) pxf[k] = tx0 + static_cast<float>(px[k]);
     pyf[k] = ty0 + static_cast<float>(py[k]);
   }
+  float4 rect;
+  if constexpr (CULL) rect = warp_rect<PPT>(px, py, tile_w, tile_h, tx0, ty0);
   auto live_now = [&]() {
     bool live = false;
 #pragma unroll
@@ -139,6 +154,7 @@ __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
       dst[0] = make_float4(v[0], v[1], v[2], v[3]);
       dst[1] = make_float4(v[4], v[5], v[6], v[7]);
       *reinterpret_cast<float2*>(&s_f[threadIdx.x][8]) = make_float2(v[8], v[9]);
+      if constexpr (CULL) s_box[threadIdx.x] = cull_box(v);
     }
     __syncthreads();
 
@@ -180,13 +196,28 @@ __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
       }
     };
 
-    // a warp walks until its pixels have all frozen, checked before every
-    // second pair of the batch (cuda_blend_mixed.forward_schedule's count)
-    bool warp_live = __any_sync(FULL, live);
-    for (int i = 0; i < n && warp_live; i += 2) {
-      visit(i);
-      if (i + 1 < n) visit(i + 1);
-      if constexpr (!FAST) warp_live = __any_sync(FULL, live_now());
+    if constexpr (CULL) {
+      // 32 pairs at a time: each lane tests one pair's box against the
+      // warp's rectangle, and the warp walks the pairs whose box meets it;
+      // it stops once its pixels have all frozen, checked before every
+      // chunk (cuda_blend_mixed.forward_schedule's count)
+      for (int c0 = 0; c0 < n && __any_sync(FULL, live_now()); c0 += 32) {
+        const int j = c0 + lane;
+        unsigned meet = __ballot_sync(FULL, j < n && !box_misses(s_box[j], rect));
+        while (meet) {
+          visit(c0 + __ffs(meet) - 1);
+          meet &= meet - 1;
+        }
+      }
+    } else {
+      // a warp walks until its pixels have all frozen, checked before every
+      // second pair of the batch (cuda_blend_mixed.forward_schedule's count)
+      bool warp_live = __any_sync(FULL, live);
+      for (int i = 0; i < n && warp_live; i += 2) {
+        visit(i);
+        if (i + 1 < n) visit(i + 1);
+        if constexpr (!FAST) warp_live = __any_sync(FULL, live_now());
+      }
     }
   }
 
@@ -203,18 +234,28 @@ __global__ void __launch_bounds__(THREADS, 5) forward_mixed_kernel(
   }
 }
 
-template <int PPT, bool COLUMN>
+template <int PPT, bool COLUMN, bool CULL>
 int launch(bool fast, bool need_n, dim3 grid, cudaStream_t s, const float* fields,
            int64_t max_pairs, const int32_t* start, const int32_t* stop, int num_tiles,
            int tiles_x, int tile_w, int tile_h, int patch_w, int nx, float* c, float* d,
            float* t, int32_t* n) {
-  auto kernel = fast ? (need_n ? forward_mixed_kernel<PPT, COLUMN, true, true>
-                               : forward_mixed_kernel<PPT, COLUMN, true, false>)
-                     : (need_n ? forward_mixed_kernel<PPT, COLUMN, false, true>
-                               : forward_mixed_kernel<PPT, COLUMN, false, false>);
+  auto kernel = fast ? (need_n ? forward_mixed_kernel<PPT, COLUMN, true, true, CULL>
+                               : forward_mixed_kernel<PPT, COLUMN, true, false, CULL>)
+                     : (need_n ? forward_mixed_kernel<PPT, COLUMN, false, true, CULL>
+                               : forward_mixed_kernel<PPT, COLUMN, false, false, CULL>);
   kernel<<<grid, THREADS, 0, s>>>(fields, max_pairs, start, stop, num_tiles, tiles_x, tile_w,
                                   tile_h, patch_w, nx, c, d, t, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int PPT, bool COLUMN>
+int launch(bool cull, bool fast, bool need_n, dim3 grid, cudaStream_t s, const float* fields,
+           int64_t max_pairs, const int32_t* start, const int32_t* stop, int num_tiles,
+           int tiles_x, int tile_w, int tile_h, int patch_w, int nx, float* c, float* d,
+           float* t, int32_t* n) {
+  return (cull ? launch<PPT, COLUMN, true> : launch<PPT, COLUMN, false>)(
+      fast, need_n, grid, s, fields, max_pairs, start, stop, num_tiles, tiles_x, tile_w, tile_h,
+      patch_w, nx, c, d, t, n);
 }
 
 }  // namespace
@@ -225,11 +266,13 @@ int launch(bool fast, bool need_n, dim3 grid, cudaStream_t s, const float* field
 // cuda_blend_mixed.forward_layout's: ppt pixels a thread (1, 2 or 4) in
 // warp patches patch_w wide, nx across the tile, or row strips at four
 // pixels a thread where patch_w is 0. Needs tile_w * tile_h <= 256 * ppt.
+// cull: the lists are uncut, and each warp skips the pairs whose cull box
+// misses it (CULL above).
 extern "C" int deblurgs_forward_mixed(const void* fields, int64_t max_pairs,
                                       const void* tile_start, const void* tile_stop,
                                       int total_tiles, int num_tiles, int tiles_x,
                                       int tile_w, int tile_h, int ppt, int patch_w, int nx,
-                                      int fast, void* out_c, void* out_d, void* out_t,
+                                      int fast, int cull, void* out_c, void* out_d, void* out_t,
                                       void* out_n, void* stream) {
   if (tile_w <= 0 || tile_h <= 0 || (ppt != 1 && ppt != 2 && ppt != 4) ||
       tile_w * tile_h > THREADS * ppt)
@@ -254,14 +297,14 @@ extern "C" int deblurgs_forward_mixed(const void* fields, int64_t max_pairs,
   auto* n = static_cast<int32_t*>(out_n);
   const bool need_n = out_n != nullptr;
   if (patch_w == 0)
-    return launch<4, false>(fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
+    return launch<4, false>(cull, fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
                             tile_w, tile_h, 0, 0, c, d, t, n);
   if (ppt == 1)
-    return launch<1, true>(fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
+    return launch<1, true>(cull, fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
                            tile_w, tile_h, patch_w, nx, c, d, t, n);
   if (ppt == 2)
-    return launch<2, true>(fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
+    return launch<2, true>(cull, fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
                            tile_w, tile_h, patch_w, nx, c, d, t, n);
-  return launch<4, true>(fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
+  return launch<4, true>(cull, fast, need_n, grid, s, f, max_pairs, a, b, num_tiles, tiles_x,
                          tile_w, tile_h, patch_w, nx, c, d, t, n);
 }

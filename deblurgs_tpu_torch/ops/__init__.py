@@ -8,7 +8,8 @@
 4. ``cuda_blend_mixed`` — front-to-back compositing of stacked views
                           (kernel K1) and its per-pair gradients (kernel K2).
 5. ``cuda_blend_lockstep`` — the same for one view, ``layout="lockstep"``
-                          (kernels K5 and K6).
+                          (K5 and K6: K1's and K2's kernels on one
+                          view's tiles, with their own launch counts).
 6. ``tile_blend``       — BlendConfig, tiling, ``blend_fused`` (an
                           autograd Function: K3 and K1 or K5 forward; K2 or
                           K6, then K4, backward).

@@ -166,6 +166,15 @@ def _tile_visible(cfg, fslot: torch.Tensor, tcx: torch.Tensor,
     return pmax >= thresh - (0.05 + 0.01 * torch.abs(thresh))
 
 
+def tile_culled(cfg) -> bool:
+    """Whether :func:`sort_slots` culls each tile's list exactly
+    (:func:`_tile_visible`): on unless n_contrib is requested, whose
+    position-in-list the cull would shift. Uncut lists carry every pair of
+    each tile's rect, and the compositing kernels cull them warp by warp
+    (``cuda_blend_mixed.cull_box``)."""
+    return cfg.tile_cull and not cfg.need_n_contrib
+
+
 def _depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
     """f32 → int64 in [0, 2^32) with the same order (-0.0 and +0.0 equal)."""
     bits = (depth + 0.0).view(torch.int32).to(torch.int64)
@@ -247,7 +256,7 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     tile = (fslot[13] + tcy * cfg.tiles_x + tcx).to(torch.int64)
     tile = torch.where(valid, tile, total_tiles)
 
-    if cfg.tile_cull and not cfg.need_n_contrib:
+    if tile_culled(cfg):
         # exact per-pair tile cull: a pair whose alpha stays below 1/255 over
         # its whole tile box can never pass the compositor's gate; it retires
         # to the sort tail. Off when n_contrib is requested (the cull shifts

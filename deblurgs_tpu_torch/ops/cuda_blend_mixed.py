@@ -8,11 +8,19 @@ Counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``'s
 the depth-sorted pairs; its plain PyTorch version (:func:`forward_ref`,
 :func:`backward_ref`) runs the same gates, vectorised over tiles and
 pixels and looping over the position in the tile's list. Both kernels
-give each warp a compact pixel patch (:func:`patch_layout`; K1 picks its
-pixels a thread by tile size, :func:`forward_layout`). K2 sums each pair's
-pixel terms over the patches, and its plain version adds them in that order
-(:func:`_patch_pair_sums`). :func:`forward_schedule` walks K1's schedule,
-warp by warp, and counts the (warp, pair) visits it makes.
+give each warp a compact pixel patch (K1 at 1, 2 or 4 pixels a thread by
+tile size, :func:`forward_layout`; K2 at four, :func:`backward_layout`;
+row strips where no eight patches fit). K2 sums each pair's pixel terms
+over the patches, and its plain version adds them in that order
+(:func:`_patch_pair_sums`).
+:func:`forward_schedule` walks K1's schedule, warp by warp, and counts the
+(warp, pair) visits it makes. The lockstep layout's K5 and K6
+(``cuda_blend_lockstep``) launch these two kernels on one view's tiles.
+
+On uncut lists (the staging's tile cull off, :func:`cuda_blend.tile_culled`)
+both kernels cull warp by warp: a warp skips a pair whose cull box
+(:func:`cull_box`) misses its pixels. No pixel of the warp could have
+composited the pair, so the outputs stay bitwise the plain versions'.
 
 Outputs are tiled exactly as the JAX function returns them:
 ``C [T, PX, 3]``, ``D [T, PX]``, ``final_T [T, PX]`` and ``n_con [T, PX]``
@@ -27,7 +35,7 @@ import functools
 
 import torch
 
-from deblurgs_tpu_torch.ops.cuda_blend import Staged
+from deblurgs_tpu_torch.ops.cuda_blend import Staged, tile_culled
 from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
 
 _ALPHA_MIN = 1.0 / 255.0
@@ -112,8 +120,9 @@ def forward_schedule(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
 
     Each warp holds its pixels of :func:`forward_layout` and walks its
     tile's pairs until every one of them has frozen (the per-warp exit,
-    checked before every second pair: a warp live there walks the pair
-    after too); a warp with no pixels walks none. ``visits`` counts
+    checked before every second pair, on uncut lists before every 32: a
+    warp live there walks the pairs up to the next check); a warp with no
+    pixels walks none. ``visits`` counts
     (warp, pair) visits
     as int64 tensors: ``warp_exit`` of this schedule, ``block_exit`` of the
     schedule K1 had before (row strips p = thread + 256·k, all eight warps
@@ -122,6 +131,11 @@ def forward_schedule(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
     of the warp composites the pair, and the (pixel, pair) gate
     ``evaluations`` that front-to-back compositing of these lists needs
     (each pixel evaluates its tile's pairs in order until it freezes).
+    On uncut lists (the kernels' warp cull on) ``culled`` counts the
+    warp-exit visits that the cull skips (the pair's :func:`cull_box`
+    misses the warp's pixels, :func:`warp_rects`) and ``culled_composite``
+    those of them in which some pixel composites the pair: the cull is
+    conservative where that is 0. Both are 0 on tile-culled lists.
     """
     dev, dtype = fields.device, fields.dtype
     if tiles is None:
@@ -146,14 +160,22 @@ def forward_schedule(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
     done = (pix == px_n).expand(shape).clone()
     block_live = torch.ones(n, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    visits = {"warp_exit": zero, "block_exit": zero, "composite": zero, "evaluations": zero}
+    visits = {"warp_exit": zero, "block_exit": zero, "composite": zero, "evaluations": zero,
+              "culled": zero, "culled_composite": zero}
+    cull = not tile_culled(cfg)
+    if cull:   # each warp's pixel rectangle in the image, [n, warps]
+        rect = warp_rects(cfg.tile_w, cfg.tile_h, pix.cpu()).to(device=dev, dtype=dtype)
+        img_tile = tiles[order] % cfg.num_tiles
+        org = [((img_tile % cfg.tiles_x) * cfg.tile_w).to(dtype),
+               ((img_tile // cfg.tiles_x) * cfg.tile_h).to(dtype)]
+        rect = [org[i // 2][:, None] + rect[:, i] for i in range(4)]
     counts = count[order].tolist()
     m = n
     for k in range(counts[0] if n else 0):
         while counts[m - 1] <= k:
             m -= 1
         live = ~done[:m]
-        if k % 2 == 0:
+        if k % (32 if cull else 2) == 0:
             warp_live = live.flatten(2).any(-1)              # [m, warps]
         else:
             warp_live = warp_live[:m]
@@ -178,7 +200,14 @@ def forward_schedule(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
             stop = elig & (test_T < _T_EPS)
             contrib = elig & ~stop
             done[:m] |= stop
-        visits["composite"] = visits["composite"] + contrib.flatten(2).any(-1).sum()
+        composite = contrib.flatten(2).any(-1)                  # [m, warps]
+        visits["composite"] = visits["composite"] + composite.sum()
+        if cull:
+            box = cull_box(f)[:, :, None]                      # [4, m, 1]
+            culled = warp_live & ((box[1] < rect[0][:m]) | (box[0] > rect[1][:m])
+                                  | (box[3] < rect[2][:m]) | (box[2] > rect[3][:m]))
+            visits["culled"] = visits["culled"] + culled.sum()
+            visits["culled_composite"] = visits["culled_composite"] + (culled & composite).sum()
         w = torch.where(contrib, alpha * Tm, 0.0)
         C[:m] += w[..., None] * f[6:9].T[:, None, None, None, :]
         D[:m] += w * col(9)
@@ -210,7 +239,21 @@ def forward_mixed(cfg, staged: Staged):
     fields = staged.fields
     if fields.device.type == "cpu":
         return forward_ref(cfg, fields, staged.tile_start, staged.tile_stop)
-    _check_kernel_inputs("forward_mixed", cfg, staged)
+    out = launch_forward("forward_mixed", cfg, staged)
+    forward_mixed.launches += 1
+    return out
+
+
+forward_mixed.launches = 0
+
+
+def launch_forward(name: str, cfg, staged: Staged, cull: bool | None = None):
+    """Launch K1's kernel on CUDA tensors (no launch count): the work of
+    :func:`forward_mixed` and of K5 (``cuda_blend_lockstep``). ``cull``
+    defaults to the lists' own (uncut lists: on)."""
+    _check_kernel_inputs(name, cfg, staged)
+    cull = not tile_culled(cfg) if cull is None else cull
+    fields = staged.fields
     dev = fields.device
     nt, px_n = cfg.total_tiles, cfg.tile_px
     fields = fields.contiguous()
@@ -229,13 +272,9 @@ def forward_mixed(cfg, staged: Staged):
     load_library().launch(
         "deblurgs_forward_mixed", fields.data_ptr(), fields.shape[1],
         start.data_ptr(), stop.data_ptr(), nt, cfg.num_tiles, cfg.tiles_x,
-        cfg.tile_w, cfg.tile_h, ppt, patch_w, nx, int(cfg.fast), C.data_ptr(), D.data_ptr(),
-        T.data_ptr(), n_ptr, stream_ptr(dev))
-    forward_mixed.launches += 1
+        cfg.tile_w, cfg.tile_h, ppt, patch_w, nx, int(cfg.fast), int(cull), C.data_ptr(),
+        D.data_ptr(), T.data_ptr(), n_ptr, stream_ptr(dev))
     return C, D, T, n_con
-
-
-forward_mixed.launches = 0
 
 
 def _check_kernel_inputs(name, cfg, staged) -> None:
@@ -256,19 +295,44 @@ def _check_kernel_inputs(name, cfg, staged) -> None:
                          f"{_MAX_TILE_PX}")
 
 
-def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum [n, PX] over pixels in K6's order (``csrc/backward_lockstep.cu``):
-    each thread adds its pixels p = t + 256·k in turn, the warp adds its
-    lanes by a shuffle tree, then the eight warp partials are added in warp
-    order. Pixels past PX are zeros, which leave a running sum as it is, so
-    this is K6's order at one to four pixels a thread."""
-    n, px_n = x.shape
-    x = torch.nn.functional.pad(x, (0, _MAX_TILE_PX - px_n))
-    x = x.reshape(n, _MAX_TILE_PX // (_LANES * _WARPS), _WARPS, _LANES)
-    a = x[:, 0]
-    for k in range(1, x.shape[1]):
-        a = a + x[:, k]                           # [n, WARPS, LANES]
-    return _warp_sums(a)
+def cull_box(f: torch.Tensor) -> torch.Tensor:
+    """The warp cull's pixel box of each pair, [4, n] (x0, x1, y0, y1), from
+    its rows 0-9 ``f`` [>=10, n], in the kernels' float32 sequence
+    (``csrc/common.cuh::cull_box``, which gives the reckoning): every pixel
+    at which the pair can pass the alpha gate lies in the box. A pair with a
+    non-finite field, or a conic not clearly positive definite, gets the
+    whole plane; one whose opacity cannot reach 1/255 an empty box."""
+    finite = torch.isfinite(f[:10]).all(0)
+    mx, my, a, b, c, op = (f[i] for i in range(6))
+    thr = -torch.log(255.0 * op)
+    k = (0.05 + 0.01 * torch.abs(thr)) - thr
+    e = 1e-6 * (torch.maximum(torch.abs(a), torch.abs(c)) + torch.abs(b))
+    a2, c2 = a - e, c - e
+    det = a2 * c2 - b * b
+    k2 = 2.0 * k
+    hx = torch.sqrt(k2 * c2 / det) * 1.001 + (0.01 + 1e-6 * torch.abs(mx))
+    hy = torch.sqrt(k2 * a2 / det) * 1.001 + (0.01 + 1e-6 * torch.abs(my))
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy])
+    inf = float("inf")
+    empty = torch.tensor([inf, -inf, inf, -inf], dtype=f.dtype, device=f.device)[:, None]
+    box = torch.where(k >= 0.0, box, empty)
+    ok = finite & (a2 > 0.0) & (c2 > 0.0) & (det > 1e-3 * (a2 * c2))
+    return torch.where(ok, box, -empty)
+
+
+def warp_rects(tile_w: int, tile_h: int, pix: torch.Tensor) -> torch.Tensor:
+    """Each warp's pixel rectangle in the tile, [warps, 4] (x0, x1, y0, y1)
+    float, from a layout's pixels ``pix`` [warps, LANES, ppt] (tile_px
+    where there is none); (inf, -inf, inf, -inf) for a warp without
+    pixels (``csrc/common.cuh::warp_rect``)."""
+    px = tile_w * tile_h
+    flat = pix.flatten(1)
+    ok = flat < px
+    x, y = (flat % tile_w).double(), (flat // tile_w).double()
+    inf = float("inf")
+    lo = lambda v: torch.where(ok, v, inf).amin(1)     # noqa: E731
+    hi = lambda v: torch.where(ok, v, -inf).amax(1)    # noqa: E731
+    return torch.stack([lo(x), hi(x), lo(y), hi(y)], 1)
 
 
 def _warp_sums(a: torch.Tensor) -> torch.Tensor:
@@ -340,84 +404,113 @@ def _patch_xy(tile_w: int, tile_h: int, ppt: int = _PPT):
     return (w % nx) * pw + lane % pw, (w // nx) * ph + lane // pw + k * (_LANES // pw)
 
 
-@functools.lru_cache(maxsize=None)
-def _patch_pixels(tile_w: int, tile_h: int, ppt: int = _PPT) -> torch.Tensor:
-    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of the patch
-    layout, or tile_px where there is none."""
-    x, y = _patch_xy(tile_w, tile_h, ppt)
-    return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x, tile_w * tile_h)
-
-
-@functools.lru_cache(maxsize=None)
-def forward_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
-    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of K1's layout
-    (:func:`forward_layout`), or tile_px where there is none."""
-    ppt, pw, _, _ = forward_layout(tile_w, tile_h)
+def _layout_xy(tile_w: int, tile_h: int, layout: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Column and row in the tile of each (warp, lane, k) of a pixel
+    layout (:func:`forward_layout`'s tuple), [warps, LANES, ppt] each, past
+    the tile where the kernels' thread has no pixel: warp patches, or the
+    row strips p = thread + 256·k (row tile_h past the last pixel)."""
+    ppt, pw = layout[:2]
     if pw:
-        return _patch_pixels(tile_w, tile_h, ppt)
+        x, y = _patch_xy(tile_w, tile_h, ppt)
+        return x.expand(y.shape), y
     p = torch.arange(_WARPS * _LANES).reshape(_WARPS, _LANES, 1) + \
         _WARPS * _LANES * torch.arange(ppt)
     px = tile_w * tile_h
-    return torch.where(p < px, p, px)
+    return p % tile_w, torch.where(p < px, p // tile_w, tile_h)
 
 
-def _patch_gather(cfg, x: torch.Tensor) -> torch.Tensor:
-    """[n, PX] → [n, warps, LANES, 4] in K2's patch layout, zero where a
+@functools.lru_cache(maxsize=None)
+def layout_pixels(tile_w: int, tile_h: int, layout: tuple) -> torch.Tensor:
+    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of a pixel
+    layout (:func:`forward_layout`'s tuple), or tile_px where there is
+    none."""
+    x, y = _layout_xy(tile_w, tile_h, layout)
+    return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x, tile_w * tile_h)
+
+
+def forward_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """[warps, LANES, ppt] tile pixel of each (warp, lane, k) of K1's layout
+    (:func:`forward_layout`), or tile_px where there is none."""
+    return layout_pixels(tile_w, tile_h, forward_layout(tile_w, tile_h))
+
+
+@functools.lru_cache(maxsize=None)
+def backward_layout(tile_w: int, tile_h: int) -> tuple[int, int, int, int]:
+    """K2's pixel layout of a tile_w × tile_h tile (at most 1024 pixels),
+    (ppt, patch_w, nx, n): four pixels a thread in :func:`patch_layout`'s
+    warp patches, one warp a patch (16×8 patches: eight in a 32×32 tile, two
+    in a 16×16 tile), or K1's row strips in eight warps where more than
+    eight patches would be needed (patch_w = nx = n = 0). Four pixels a
+    thread share the warp's reduction among 128 evaluations, which beat
+    K1's one pixel a thread on the evaluation lists (PERF.md)."""
+    px = tile_w * tile_h
+    if not 0 < px <= _MAX_TILE_PX:
+        raise ValueError(f"K2 takes tiles of 1 to {_MAX_TILE_PX} pixels, got {tile_w}x{tile_h}")
+    pw, _, nx, n = patch_layout(tile_w, tile_h, _PPT)
+    return (_PPT, pw, nx, n) if n <= _WARPS else (_PPT, 0, 0, 0)
+
+
+def backward_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """[warps, LANES, 4] tile pixel of each (warp, lane, k) of K2's layout
+    (:func:`backward_layout`), or tile_px where there is none."""
+    return layout_pixels(tile_w, tile_h, backward_layout(tile_w, tile_h))
+
+
+def _layout_gather(x: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """[n, PX] → [n, warps, LANES, ppt] by a layout's pixels, zero where a
     (warp, lane, k) has no pixel."""
-    idx = _patch_pixels(cfg.tile_w, cfg.tile_h).to(x.device)
-    return torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)[:, idx]
+    return torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)[:, pix.to(x.device)]
 
 
 def _lane_sum(g: torch.Tensor) -> torch.Tensor:
-    """[n, warps, LANES, 4] → [n, warps, LANES]: each thread adds its four
+    """[n, warps, LANES, ppt] → [n, warps, LANES]: each thread adds its
     pixels to +0.0 in turn."""
     a = torch.zeros_like(g[..., 0])
-    for k in range(_PPT):
+    for k in range(g.shape[-1]):
         a = a + g[..., k]
     return a
 
 
 def _patch_pixel_sum(cfg, x: torch.Tensor) -> torch.Tensor:
-    """Sum [n, PX] over pixels in K2's order: each thread adds its four
-    pixels of its warp's patch to +0.0 in turn, the warp adds its lanes by
-    the shuffle tree, the warp partials are added in warp order."""
-    return _warp_sums(_lane_sum(_patch_gather(cfg, x)))
-
-
-def _row_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy):
-    """K6's per-pair sums of one walk step: each of the ten pixel terms
-    masked to the compositing pixels and summed in K6's order."""
-    ca, cbq, cc = (f[i][:, None] for i in (2, 3, 4))
-    gx = ca * dx + cbq * dy
-    gy = cc * dy + cbq * dx
-    terms = (-N * gx, -N * gy, -0.5 * N * dx * dx, -N * dx * dy, -0.5 * N * dy * dy,
-             GD) + tuple(w * d for d in dls)
-    return [_pixel_sum(torch.where(contrib, t, 0.0)) for t in terms]
+    """Sum [n, PX] over pixels in K2's order (:func:`backward_layout`): each
+    thread adds its pixels to +0.0 in turn, the warp adds its lanes by the
+    shuffle tree, the warp partials are added in warp order."""
+    return _warp_sums(_lane_sum(_layout_gather(x, backward_pixels(cfg.tile_w, cfg.tile_h))))
 
 
 def _patch_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy):
-    """K2's per-pair sums of one walk step, in its order: a thread's four
-    pixels share dx, so rows 0-4 come from its moments ΣN, ΣN·dy and
-    Σ(N·dy)·dy (added over its pixels to +0.0 in turn), rows 5-9 from its
-    pixels' terms; then the shuffle tree and the warp order."""
+    """K2's per-pair sums of one walk step in its pixel layout
+    (:func:`backward_layout`), in its order: the pixels of a thread that
+    share a column share dx, so rows 0-4 come from each column's moments
+    ΣN, ΣN·dy and Σ(N·dy)·dy (added over its pixels to +0.0 in turn) and a
+    few products by its dx, the columns' terms added in turn (one column in
+    warp patches, one a pixel in the row strips); rows 5-9 from the pixels'
+    terms; then the shuffle tree and the warp order."""
     dev, dtype = f.device, f.dtype
-    Nz = _patch_gather(cfg, torch.where(contrib, N, 0.0))
-    dyg = _patch_gather(cfg, dy)
-    sN, sNdy, sNdy2 = (torch.zeros_like(Nz[..., 0]) for _ in range(3))
-    for k in range(_PPT):
-        nd = Nz[..., k] * dyg[..., k]
-        sN = sN + Nz[..., k]
-        sNdy = sNdy + nd
-        sNdy2 = sNdy2 + nd * dyg[..., k]
+    layout = backward_layout(cfg.tile_w, cfg.tile_h)
+    ppt, pw = layout[:2]
+    pix = backward_pixels(cfg.tile_w, cfg.tile_h)
+    Nz = _layout_gather(torch.where(contrib, N, 0.0), pix)
+    dyg = _layout_gather(dy, pix)
     img_tile = tiles % cfg.num_tiles
-    tx0 = ((img_tile % cfg.tiles_x) * cfg.tile_w).to(dtype)[:, None, None]
-    lane_x = _patch_xy(cfg.tile_w, cfg.tile_h)[0][..., 0].to(device=dev, dtype=dtype)
-    dxl = f[0][:, None, None] - (tx0 + lane_x)
+    tx0 = ((img_tile % cfg.tiles_x) * cfg.tile_w).to(dtype)[:, None, None, None]
+    xs = _layout_xy(cfg.tile_w, cfg.tile_h, layout)[0].to(device=dev, dtype=dtype)
+    dxs = f[0][:, None, None, None] - (tx0 + xs)          # [n, warps, LANES, ppt]
     ca, cbq, cc = (f[i][:, None, None] for i in (2, 3, 4))
-    cadx, cbdx = ca * dxl, cbq * dxl
-    lanes = [-(cadx * sN + cbq * sNdy), -(cc * sNdy + cbdx * sN), -0.5 * dxl * dxl * sN,
-             -(dxl * sNdy), -0.5 * sNdy2]
-    lanes += [_lane_sum(_patch_gather(cfg, torch.where(contrib, t, 0.0)))
+    lanes = None
+    for ks in ([range(ppt)] if pw else [[k] for k in range(ppt)]):
+        sN, sNdy, sNdy2 = (torch.zeros_like(Nz[..., 0]) for _ in range(3))
+        for k in ks:
+            nd = Nz[..., k] * dyg[..., k]
+            sN = sN + Nz[..., k]
+            sNdy = sNdy + nd
+            sNdy2 = sNdy2 + nd * dyg[..., k]
+        dxl = dxs[..., ks[0]]
+        cadx, cbdx = ca * dxl, cbq * dxl
+        terms = [-(cadx * sN + cbq * sNdy), -(cc * sNdy + cbdx * sN), -0.5 * dxl * dxl * sN,
+                 -(dxl * sNdy), -0.5 * sNdy2]
+        lanes = terms if lanes is None else [a + t for a, t in zip(lanes, terms)]
+    lanes += [_lane_sum(_layout_gather(torch.where(contrib, t, 0.0), pix))
               for t in (GD,) + tuple(w * d for d in dls)]
     return [_warp_sums(a) for a in lanes]
 
@@ -426,8 +519,7 @@ def backward_total(cfg, bg, final_T, dl_pix, dl_depth, C, D) -> torch.Tensor:
     """Per-pixel ``total = dl·C + final_T·(dl·bg + z_far·dL/dd)`` (with the
     pre-background C and D), the S_0 of every pixel's suffix sums
     (``pallas_blend_mixed.py:737-739``). Each product and sum is written out
-    in the order K2 computes it in its prologue; K6 takes it from its
-    wrapper."""
+    in the order K2 computes it in its prologue."""
     d0, d1, d2 = dl_pix.unbind(-1)
     c0, c1, c2 = C.unbind(-1)
     sigma_dot = ((c0 * d0 + c1 * d1) + c2 * d2) + D * dl_depth
@@ -453,11 +545,11 @@ def backward_ref(cfg, fields: torch.Tensor, tile_start: torch.Tensor,
 
 def backward_walk(cfg, fields, tile_start, tile_stop, dl_pix, dl_depth, total, tiles,
                   pair_sums) -> torch.Tensor:
-    """The backward compositing walk of K2 and K6: each step's per-pixel
+    """The backward compositing walk of K2: each step's per-pixel
     quantities go to ``pair_sums`` (the kernel's terms and summation order,
-    :func:`_patch_pair_sums` or :func:`_row_pair_sums`), which returns the
-    ten per-pair sums. Tiles are walked in lockstep by position in their
-    lists, longest list first."""
+    :func:`_patch_pair_sums`), which returns the ten per-pair sums. Tiles
+    are walked in lockstep by position in their lists, longest list
+    first."""
     dev, dtype = fields.device, fields.dtype
     out = torch.zeros((16, fields.shape[1]), dtype=dtype, device=dev)
     if tiles is None:
@@ -534,21 +626,33 @@ def backward_mixed(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> 
         total = backward_total(cfg, bg, final_T, dl_pix, dl_depth, C, D)
         return backward_ref(cfg, fields, staged.tile_start, staged.tile_stop, dl_pix,
                             dl_depth, total)
-    _check_kernel_inputs("backward_mixed", cfg, staged)
+    out = launch_backward("backward_mixed", cfg, staged, bg, final_T, dl_pix, dl_depth, C, D)
+    backward_mixed.launches += 1
+    return out
+
+
+backward_mixed.launches = 0
+
+
+def launch_backward(name: str, cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D,
+                    cull: bool | None = None) -> torch.Tensor:
+    """Launch K2's kernel on CUDA tensors (no launch count): the work of
+    :func:`backward_mixed` and of K6 (``cuda_blend_lockstep``). ``cull``
+    defaults to the lists' own (uncut lists: on)."""
+    _check_kernel_inputs(name, cfg, staged)
+    cull = not tile_culled(cfg) if cull is None else cull
+    fields = staged.fields
     dev = fields.device
     nt, px_n = cfg.total_tiles, cfg.tile_px
     per_px = (dl_pix, dl_depth, C, D, final_T, bg)
     if any(t.device != dev or t.dtype != torch.float32 for t in per_px):
-        raise ValueError("backward_mixed: cotangents, C, D, final_T and bg must be float32 "
+        raise ValueError(f"{name}: cotangents, C, D, final_T and bg must be float32 "
                          "on the fields' device")
     shapes = (dl_pix.shape, C.shape, dl_depth.shape, D.shape, final_T.shape, bg.shape)
     if shapes != ((nt, px_n, 3),) * 2 + ((nt, px_n),) * 3 + ((3,),):
-        raise ValueError(f"backward_mixed: expected [{nt}, {px_n}(, 3)] per-pixel inputs "
+        raise ValueError(f"{name}: expected [{nt}, {px_n}(, 3)] per-pixel inputs "
                          f"and bg [3], got {shapes}")
-    patch_w, _, _, n_patches = patch_layout(cfg.tile_w, cfg.tile_h)
-    if n_patches > _WARPS:
-        raise ValueError(f"backward_mixed: a {cfg.tile_w}x{cfg.tile_h} tile needs "
-                         f"{n_patches} warp patches, the kernel has {_WARPS}")
+    _, patch_w, nx, _ = backward_layout(cfg.tile_w, cfg.tile_h)
     fields = fields.contiguous()
     dl_pix, dl_depth, C, D, final_T, bg = (t.contiguous() for t in per_px)
     start = staged.tile_start.to(device=dev, dtype=torch.int32).contiguous()
@@ -557,11 +661,7 @@ def backward_mixed(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> 
     load_library().launch(
         "deblurgs_backward_mixed", fields.data_ptr(), fields.shape[1],
         start.data_ptr(), stop.data_ptr(), nt, cfg.num_tiles, cfg.tiles_x,
-        cfg.tile_w, cfg.tile_h, patch_w, int(cfg.fast), dl_pix.data_ptr(),
+        cfg.tile_w, cfg.tile_h, patch_w, nx, int(cfg.fast), int(cull), dl_pix.data_ptr(),
         dl_depth.data_ptr(), C.data_ptr(), D.data_ptr(), final_T.data_ptr(), bg.data_ptr(),
         cfg.z_far, out.data_ptr(), stream_ptr(dev))
-    backward_mixed.launches += 1
     return out.T
-
-
-backward_mixed.launches = 0

@@ -28,9 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu",
-           "forward_lockstep.cu", "backward_lockstep.cu")
-HEADERS = ("common.cuh", "lockstep.cuh")
+SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,15 +41,10 @@ _f32 = ctypes.c_float
 # void*); each returns the cudaError_t of its launch
 _SIGNATURES = {
     "deblurgs_broadcast_fields": [_vp, _vp, _vp, _i64, _i64, _vp],
-    "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
-                               _i32, _i32, _i32, _vp, _vp, _vp, _vp, _vp],
-    "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
-                                _i32, _vp, _vp, _vp, _vp, _vp, _vp, _f32, _vp, _vp],
+    "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp] + [_i32] * 10 + [_vp] * 5,
+    "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp] + [_i32] * 9 + [_vp] * 6
+                               + [_f32, _vp, _vp],
     "deblurgs_reduce_sorted": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
-    "deblurgs_forward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
-                                  _vp, _vp, _vp, _vp, _vp],
-    "deblurgs_backward_lockstep": [_vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
-                                   _vp, _vp, _vp, _vp, _vp],
 }
 
 

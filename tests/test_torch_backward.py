@@ -7,9 +7,9 @@ package's Pallas path, run in interpret mode as its own tests run it.
   ``backward_mixed`` on the same scene (its per-Gaussian sums);
 - K4's plain version against ``pallas_blend._reduce_sorted`` and
   ``segment_sum``, with NaN in the sentinel slots;
-- K2's pixel-sum order over its warp patches is a sum, and its warp cull
-  leaves every slot's gradient bit for bit as the walk without it, on
-  splats that straddle patch edges;
+- K2's pixel-sum order over its pixel layout (warp patches at one, two or
+  four pixels a thread, or row strips) is a sum of the pixels' terms, also
+  on splats that straddle patch edges;
 - the indefinite-conic NaN regression of ``tests/test_pallas_blend.py``.
 
 Gradients are compared after dividing by the reference's max |g|
@@ -199,9 +199,55 @@ def test_plain_backward_on_a_tile_subset_and_repeat_calls():
         torch.arange(int(staged.tile_start[t]), int(staged.tile_stop[t])) for t in tiles.tolist()])]))
 
 
+def _pair_terms(f, contrib, N, GD, w, dls, dx, dy):
+    """The ten per-pixel terms of one walk step's per-pair sums, masked to
+    the compositing pixels, each written out as the module docstring of
+    ``csrc/backward_mixed.cu`` states it."""
+    ca, cbq, cc = (f[i][:, None] for i in (2, 3, 4))
+    terms = (-N * (ca * dx + cbq * dy), -N * (cc * dy + cbq * dx), -0.5 * N * dx * dx,
+             -N * dx * dy, -0.5 * N * dy * dy, GD) + tuple(w * d for d in dls)
+    return [torch.where(contrib, t, 0.0) for t in terms]
+
+
+def _naive_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy):
+    """The per-pair sums of one walk step by ``torch.sum`` over the pixels'
+    terms: an order with nothing of K2's layout in it."""
+    return [t.sum(-1) for t in _pair_terms(f, contrib, N, GD, w, dls, dx, dy)]
+
+
+def check_pair_sums(tile_w, tile_h, seed=0, n=6):
+    """K2's per-pair sums of one walk step in its layout at this tile
+    (``_patch_pair_sums``) against the same terms summed in float64, within
+    float32 reassociation: 1e-5 of each row's sum of |term|. Returns the
+    layout."""
+    cfg = ttb.BlendConfig(width=2 * tile_w, height=2 * tile_h, tile_w=tile_w, tile_h=tile_h)
+    rng = np.random.default_rng(seed)
+    px = tile_w * tile_h
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))   # noqa: E731
+    tiles = torch.from_numpy(rng.integers(0, cfg.num_tiles, n))
+    f = torch.zeros((10, n))
+    f[0], f[1] = f32(rng.uniform(0, 2 * tile_w, n)), f32(rng.uniform(0, 2 * tile_h, n))
+    f[2], f[4] = f32(rng.uniform(0.05, 1.0, n)), f32(rng.uniform(0.05, 1.0, n))
+    f[3] = f32(rng.uniform(-0.04, 0.04, n))
+    pix_x, pix_y = cuda_blend_mixed._pixel_coords(cfg, tiles)
+    dx, dy = f[0][:, None] - pix_x, f[1][:, None] - pix_y
+    contrib = torch.from_numpy(rng.random((n, px)) < 0.7)
+    N, GD, w, *dls = (f32(rng.standard_normal((n, px))) for _ in range(7))
+    got = cuda_blend_mixed._patch_pair_sums(cfg, tiles, f, contrib, N, GD, w, dls, dx, dy)
+    terms = _pair_terms(f.double(), contrib, N.double(), GD.double(), w.double(),
+                        [d.double() for d in dls], dx.double(), dy.double())
+    assert len(got) == len(terms) == 10
+    for row, (g, t) in enumerate(zip(got, terms)):
+        err = (g.double() - t.sum(-1)).abs()
+        assert bool((err <= 1e-5 * t.abs().sum(-1)).all()), f"row {row}: {err.max():.3e}"
+        assert bool(t.abs().sum(-1).gt(0).all())
+    return cuda_blend_mixed.backward_layout(tile_w, tile_h)
+
+
 def test_pixel_sum_order_is_a_sum():
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal((7, 256)))
-    torch.testing.assert_close(cuda_blend_mixed._pixel_sum(x), x.sum(-1))
+    """K2's order in the row strips (a 40×20 tile, which no eight warp
+    patches cover): four pixels a thread, moments a pixel."""
+    assert check_pair_sums(40, 20) == (4, 0, 0, 0)
 
 
 @pytest.mark.parametrize("tile_w,tile_h", [(32, 32), (16, 16), (8, 8), (16, 8), (24, 24)])
@@ -210,7 +256,7 @@ def test_patch_pixel_sum_is_a_sum(tile_w, tile_h):
     the tile once, in at most the kernel's 8 warps, and sums them."""
     pw, ph, nx, n = cuda_blend_mixed.patch_layout(tile_w, tile_h)
     assert n <= 8 and pw * ph == 128
-    idx = cuda_blend_mixed._patch_pixels(tile_w, tile_h).flatten()
+    idx = cuda_blend_mixed.backward_pixels(tile_w, tile_h).flatten()
     assert sorted(idx[idx < tile_w * tile_h].tolist()) == list(range(tile_w * tile_h))
     if (tile_w, tile_h) == (32, 32):
         assert (pw, ph, n) == (16, 8, 8)
@@ -253,8 +299,9 @@ def _edge_scene(n=400, seed=11, size=64):
                          ids=["t32", "t32_fast", "t16"])
 def test_patch_order_on_straddling_splats(fast, tile):
     """On splats that straddle K2's patch edges, its plain version (pixel
-    sums by warp patch, per-thread moments) gives K6's pixel-row sums to
-    float32 reassociation, and the splats do reach several patches."""
+    sums by warp patch, per-thread moments) gives the pixels' terms summed
+    by ``torch.sum`` to float32 reassociation, and the splats do reach
+    several patches."""
     size = 64
     cfg = ttb.BlendConfig(width=size, height=size, tile_w=tile, tile_h=tile, max_pairs=1 << 13,
                           need_n_contrib=False, fast=fast)
@@ -270,10 +317,10 @@ def test_patch_order_on_straddling_splats(fast, tile):
                                             C, D)
     args = (cfg, staged.fields, staged.tile_start, staged.tile_stop, dl_pix, dl_d, total)
     patches = cuda_blend_mixed.backward_ref(*args)
-    rows = cuda_blend_mixed.backward_walk(*args, None, cuda_blend_mixed._row_pair_sums)
+    naive = cuda_blend_mixed.backward_walk(*args, None, _naive_pair_sums)
     assert bool(patches[:10].any()) and bool((patches[10:] == 0).all())
     for row in range(10):
-        assert_grads_close(patches[row], rows[row], atol=1e-6, name=f"row {row}")
+        assert_grads_close(patches[row], naive[row], atol=1e-6, name=f"row {row}")
     # many pairs pass the gate in two patches or more
     kept = int(staged.tile_stop[-1])
     f = staged.fields[:, :kept]
@@ -281,7 +328,7 @@ def test_patch_order_on_straddling_splats(fast, tile):
     dx, dy = f[0][:, None] - px, f[1][:, None] - py
     power = -0.5 * (f[2][:, None] * dx * dx + f[4][:, None] * dy * dy) - f[3][:, None] * dx * dy
     gate = (power <= 0) & (f[5][:, None] * torch.exp(torch.clamp(power, max=0.0)) >= 1 / 255)
-    idx = cuda_blend_mixed._patch_pixels(tile, tile).flatten(1)
+    idx = cuda_blend_mixed.backward_pixels(tile, tile).flatten(1)
     per_patch = torch.cat([gate, gate.new_zeros((kept, 1))], 1)[:, idx].any(-1)
     assert per_patch.shape[1] > 1 and int((per_patch.sum(1) > 1).sum()) > kept // 4
 

@@ -134,6 +134,29 @@ def test_composite_kernel_matches_plain(card, tile_w, tile_h, need_n_contrib, fa
         assert int(got[3].max()) > 1
 
 
+@pytest.mark.parametrize("tile_w,tile_h", K1_TILES, ids=[f"{w}x{h}" for w, h in K1_TILES])
+def test_cull_matches_plain(card, tile_w, tile_h):
+    """On uncut lists (need_n_contrib on) K1 with and without its warp cull
+    gives the same bits, and K2 with and without it bit for bit its plain
+    version, in its layout by tile (row strips at 40×20)."""
+    cfg, flat = _staged_inputs(card, need_n_contrib=True, tile_w=tile_w, tile_h=tile_h)
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    outs = [cuda_blend_mixed.launch_forward("K1", cfg, staged, cull=c) for c in (True, False)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    C, D, T, _ = outs[0]
+    dl_pix, dl_d = _cotangents(cfg)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=card)
+    total = cuda_blend_mixed.backward_total(cfg, bg, T, dl_pix, dl_d, C, D)
+    want = cuda_blend_mixed.backward_ref(cfg, staged.fields, staged.tile_start,
+                                         staged.tile_stop, dl_pix, dl_d, total)
+    for cull in (True, False):
+        got = cuda_blend_mixed.launch_backward("K2", cfg, staged, bg, T, dl_pix, dl_d, C, D,
+                                               cull=cull)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cull
+
+
 def test_blend_kernel_path_matches_plain_path(card):
     cfg, flat = _staged_inputs(card)
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
@@ -328,7 +351,8 @@ def _one_view(card, tile, need_n_contrib):
 @pytest.mark.parametrize("tile,need_n_contrib", [(16, True), (16, False), (32, True)])
 def test_lockstep_kernels_match_plain(card, tile, need_n_contrib):
     """K5 equals its plain version and K1 on the same list bit for bit,
-    ``n_con`` included; K6 equals its plain version slot for slot."""
+    ``n_con`` included; K6 equals its plain version and K2 on the same list
+    slot for slot, bit for bit, and two K6 calls agree."""
     cfg, mixed, staged, _ = _one_view(card, tile, need_n_contrib)
     before = (cuda_blend_lockstep.forward_lockstep.launches,
               cuda_blend_lockstep.backward_lockstep.launches)
@@ -348,6 +372,8 @@ def test_lockstep_kernels_match_plain(card, tile, need_n_contrib):
     total = cuda_blend_mixed.backward_total(cfg, bg, T, dl_pix, dl_d, C, D)
     torch.cuda.synchronize()
     assert torch.equal(pg, cuda_blend_lockstep.backward_lockstep_ref(*args, dl_pix, dl_d, total))
+    assert torch.equal(pg, cuda_blend_mixed.backward_mixed(mixed, staged, bg, T, dl_pix, dl_d, C,
+                                                           D))
     assert torch.equal(pg, cuda_blend_lockstep.backward_lockstep(cfg, staged, bg, T, dl_pix,
                                                                  dl_d, C, D))
     assert (cuda_blend_lockstep.forward_lockstep.launches,

@@ -12,6 +12,12 @@ Gaussians).
   evaluations over the pixels a warp holds, nor than the visits in which
   some pixel composites;
 - K1's layout covers every pixel once in at most eight warps;
+- the warp cull of uncut lists is conservative: on adversarial splats
+  (alpha = 1/255 contours within a pixel of a warp patch's edge, opacities
+  near 1/255, near-singular and indefinite conics, a non-finite colour)
+  every (pair, pixel) that passes the alpha gate lies in the pair's cull
+  box, the schedule's culled visits composite nothing, and its outputs stay
+  the plain version's;
 - the schedule against JAX's ``forward_mixed`` (Pallas, interpret mode) at
   tile 32 and 16×8, at ``tests/test_rasterizer.py``'s tolerance;
 - K3's plain version writes NaN for a rank outside [0, n_rows), as the
@@ -189,3 +195,117 @@ def test_broadcast_plain_writes_nan_out_of_range(n_rows):
     assert bool(torch.isnan(got[:, ~ok]).all())
     if n_rows:
         assert torch.equal(got[:, ok], ctable[gauss_c[ok].long()].T)
+
+
+def _cull_scene(kind, tile, n=120, seed=17):
+    """Staged inputs (one view, 64×48) of splats that test the warp cull at
+    this tile's K1 layout: ``edge`` puts each alpha = 1/255 contour's
+    extreme column or row within a pixel of a warp patch's edge (rotated and
+    axis-aligned conics); ``faint`` has opacities within a few percent of
+    1/255, means on pixel centres; ``needle`` near-singular conics
+    (covariance eigenvalues 0.3 and up to 3e4), some exactly singular or
+    indefinite; ``nonfinite`` one NaN and one infinite colour among
+    ordinary splats. Rects cover the contour plus two pixels."""
+    rng = np.random.default_rng(seed)
+    ppt, pw, _, _ = cbm.forward_layout(tile, tile)
+    ph = 32 // pw * ppt
+    th = rng.uniform(0, np.pi, n) * (rng.random(n) < 0.6)
+    sig = np.exp(rng.uniform(np.log(0.6), np.log(6.0), (n, 2)))
+    opac = rng.uniform(0.05, 0.99, n)
+    if kind == "faint":
+        opac = np.float32(1 / 255) * rng.uniform(0.98, 1.06, n)
+    elif kind == "nonfinite":
+        opac = rng.uniform(0.05, 0.5, n)
+    elif kind == "needle":
+        sig[:, 0] = np.exp(rng.uniform(np.log(3.0), np.log(170.0), n))
+        sig[:, 1] = np.sqrt(0.3 - 0.29 * (rng.random(n) < 0.5))
+    c, s_ = np.cos(th), np.sin(th)
+    cov = np.empty((n, 2, 2))
+    cov[:, 0, 0] = c * c * sig[:, 0] ** 2 + s_ * s_ * sig[:, 1] ** 2
+    cov[:, 1, 1] = s_ * s_ * sig[:, 0] ** 2 + c * c * sig[:, 1] ** 2
+    cov[:, 0, 1] = cov[:, 1, 0] = c * s_ * (sig[:, 0] ** 2 - sig[:, 1] ** 2)
+    inv = np.linalg.inv(cov)
+    conic = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], -1)
+    if kind == "needle":     # exactly singular and indefinite conics
+        conic[:8, 1] = np.sqrt(conic[:8, 0] * conic[:8, 2])
+        conic[8:16, 1] = 1.5 * np.sqrt(conic[8:16, 0] * conic[8:16, 2])
+    # the 1/255 contour's half-extents
+    lg = 2 * np.log(np.maximum(255 * opac, 1.0))
+    hx, hy = np.sqrt(lg * cov[:, 0, 0]), np.sqrt(lg * cov[:, 1, 1])
+    mx = rng.uniform(0, W, n)
+    my = rng.uniform(0, H, n)
+    if kind == "edge":
+        # the contour's right or left extreme (or bottom or top) at a patch
+        # edge, plus or minus up to a pixel
+        side = rng.integers(0, 4, n)
+        ex = pw * rng.integers(1, W // pw, n) + rng.uniform(-1, 1, n) - 0.5
+        ey = ph * rng.integers(1, H // ph, n) + rng.uniform(-1, 1, n) - 0.5
+        mx = np.where(side == 0, ex - hx, np.where(side == 1, ex - 1 + hx, mx))
+        my = np.where(side == 2, ey - hy, np.where(side == 3, ey - 1 + hy, my))
+    elif kind == "faint":
+        mx, my = np.round(mx), np.round(my)
+    color = rng.uniform(0, 1, (n, 3))
+    if kind == "nonfinite":
+        color[3, 1], color[7, 0] = np.nan, np.inf
+    rad_x, rad_y = np.minimum(hx, 200) + 2, np.minimum(hy, 200) + 2
+    tx, ty = -(-W // tile), -(-H // tile)
+    rect = np.stack([np.clip((mx - rad_x) // tile, 0, tx), np.clip((my - rad_y) // tile, 0, ty),
+                     np.clip((mx + rad_x) // tile + 1, 0, tx),
+                     np.clip((my + rad_y) // tile + 1, 0, ty)], -1).astype(np.int32)
+    area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])).astype(np.int32)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))   # noqa: E731
+    flat = [f32(np.stack([mx, my], -1)), f32(conic), f32(opac), f32(color),
+            f32(rng.uniform(1, 5, n)), torch.from_numpy(rect), torch.from_numpy(area)]
+    cfg = ttb.BlendConfig(width=W, height=H, tile_w=tile, tile_h=tile, max_pairs=MAX_PAIRS,
+                          need_n_contrib=True)
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    assert 0 < int(staged.total) <= MAX_PAIRS
+    return cfg, staged
+
+
+CULL_KINDS = ["edge", "faint", "needle", "nonfinite"]
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("kind", CULL_KINDS)
+def test_cull_box_holds_every_gated_pixel(kind, tile):
+    """Every (pair, pixel of its tile) that passes K1's gates (power <= 0,
+    alpha >= 1/255 in the plain version's float32 sequence) lies in the
+    pair's cull box; a pair with a non-finite field or a conic that is not
+    positive definite gets the whole plane."""
+    cfg, st = _cull_scene(kind, tile)
+    kept = int(st.tile_stop[-1])
+    f = st.fields[:, :kept]
+    box = cbm.cull_box(f)
+    x, y = cbm._pixel_coords(cfg, f[10].long())
+    dx, dy = f[0][:, None] - x, f[1][:, None] - y
+    power = -0.5 * (f[2][:, None] * dx * dx + f[4][:, None] * dy * dy) - f[3][:, None] * dx * dy
+    alpha = torch.clamp(f[5][:, None] * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+    gated = (power <= 0.0) & (alpha >= 1 / 255)
+    inside = ((box[0][:, None] <= x) & (x <= box[1][:, None])
+              & (box[2][:, None] <= y) & (y <= box[3][:, None]))
+    assert int(gated.sum()) > 0
+    assert not bool((gated & ~inside).any()), int((gated & ~inside).sum())
+    whole = torch.isinf(box).all(0) & (box[0] < 0) & (box[1] > 0)
+    det = f[2] * f[4] - f[3] * f[3]
+    assert bool(whole[~torch.isfinite(f[:10]).all(0) | (det <= 0)].all())
+    if kind in ("needle", "nonfinite"):
+        assert bool(whole.any())
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("kind", CULL_KINDS)
+def test_cull_is_conservative_on_adversarial_scenes(kind, tile):
+    """On uncut lists the schedule's warp cull skips visits, none of which
+    composites anything (``culled_composite`` 0), and its outputs stay the
+    plain version's (NaN where a non-finite colour reaches, as there)."""
+    cfg, st = _cull_scene(kind, tile)
+    args = (cfg, st.fields, st.tile_start, st.tile_stop)
+    want = cbm.forward_ref(*args)
+    *got, visits = cbm.forward_schedule(*args)
+    for name, g, w in zip(("C", "D", "final_T", "n_con"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True, msg=name)
+    v = {k: int(x) for k, x in visits.items()}
+    assert v["culled_composite"] == 0 and 0 < v["culled"] < v["warp_exit"]
+    assert v["composite"] + v["culled"] <= v["warp_exit"]
+    assert bool(torch.isnan(got[0]).any()) == (kind == "nonfinite")

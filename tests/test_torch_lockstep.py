@@ -10,10 +10,11 @@ interpret mode as its own tests run it.
   the tolerances of ``tests/test_torch_backward.py``), and ``render``'s
   gradient into the camera's view matrix (the pose-refinement path)
   against ``jax.grad`` of JAX's ``render``;
-- one view on the lockstep layout against the mixed layout: K5's plain
-  version is K1's, so the outputs agree bit for bit; K6 sums a pair's
-  pixel terms in another order than K2 (pixel rows a warp against K2's
-  patches), so the gradients agree to float32 reassociation;
+- one view on the lockstep layout against the mixed layout: K5 and K6 run
+  K1's and K2's kernels, and their plain versions are K1's and K2's, so
+  outputs and gradients agree bit for bit;
+- K6's (K2's) per-pair pixel sums, four pixels a thread in one, two and
+  eight warp patches (16 and 32 wide), are sums of the pixels' terms;
 - the configuration rules JAX applies to lockstep.
 
 The kernels themselves run only on the card: ``tests/test_torch_cuda.py``
@@ -31,7 +32,7 @@ from deblurgs_tpu.ops import tile_blend as jtb
 from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
 from deblurgs_tpu_torch.ops import rasterize as tras
 from deblurgs_tpu_torch.ops import tile_blend as ttb
-from tests.test_torch_backward import GRAD_NAMES, assert_grads_close
+from tests.test_torch_backward import GRAD_NAMES, assert_grads_close, check_pair_sums
 from tests.torch_bridge import make_camera, make_gaussians, np_of, to_jax, to_torch
 
 torch.set_num_threads(1)
@@ -184,12 +185,10 @@ def test_render_camera_grad_matches_jax():
 def test_plain_versions_equal_the_mixed_ones(tile, need_n_contrib):
     """One view through ``blend_fused`` on the lockstep layout (K5/K6's
     plain versions) and on the mixed layout (K1/K2's) gives the same
-    outputs bit for bit (16×16, 32×32 and 8×8 tiles: one, four and one
-    padded pixels a thread in K6) and the same gradients up to the order of
-    each pair's pixel sum: K6 adds pixel rows a warp, K2 its patches, and
-    float32 reassociation of those ≤ 1,024-term sums moves a gradient by
-    ~1e-7 of its largest entry (held at 1e-6). K6's per-slot output is zero
-    in rows 10-15 and past the last tile's range."""
+    outputs and the same gradients bit for bit (16×16, 32×32 and 8×8
+    tiles: one, four and one pixel a thread): K6's plain version is K2's,
+    in K2's pixel layout and sum order. K6's per-slot output is zero in
+    rows 10-15 and past the last tile's range."""
     _, lock = _configs(tile, 1, need_n_contrib)
     mixed = ttb.BlendConfig(**{**lock.__dict__, "layout": "mixed"})
     flat, bg, w_img, w_dep = _scene(tile, seed=3)
@@ -203,7 +202,7 @@ def test_plain_versions_equal_the_mixed_ones(tile, need_n_contrib):
     for a, b in zip(outs[0][:6], outs[1][:6]):
         assert torch.equal(a, b)
     for name, a, b in zip(GRAD_NAMES, outs[0][6:], outs[1][6:]):
-        assert_grads_close(a, b, atol=1e-6, name=name)
+        assert torch.equal(a, b), name
     st = cuda_blend.sort_stage(lock, *to_torch(*flat), lock.max_pairs)
     C, D, T, _ = cuda_blend_lockstep.forward_lockstep(lock, st)
     pg = cuda_blend_lockstep.backward_lockstep(
@@ -235,12 +234,20 @@ def test_plain_backward_on_a_tile_subset():
     assert not bool(sub[:, ~mask].any())
 
 
+# tile of each pixel count: K2's layout there (patch width, warp patches)
+SUM_TILES = {64: ((8, 8), (8, 1)), 256: ((16, 16), (16, 2)), 500: ((250, 2), (32, 8)),
+             1024: ((32, 32), (16, 8))}
+
+
 @pytest.mark.parametrize("px", [64, 256, 500, 1024])
 def test_pixel_sum_order_is_a_sum(px):
-    """The backward kernels' pixel sum at the tile sizes K6 runs with one,
-    two or four pixels a thread."""
-    x = torch.from_numpy(np.random.default_rng(px).standard_normal((5, px)))
-    torch.testing.assert_close(cuda_blend_mixed._pixel_sum(x), x.sum(-1))
+    """K6's (K2's) per-pair sums of one walk step, four pixels a thread in
+    one, two and eight warp patches, 8, 16 and 32 pixels wide (the 8×8
+    tile leaves half the patch's places empty), against the pixels' terms
+    summed in float64 (within float32 reassociation)."""
+    (tile_w, tile_h), want = SUM_TILES[px]
+    ppt, pw, _, n = check_pair_sums(tile_w, tile_h, seed=px)
+    assert (ppt, pw, n) == (4,) + want
 
 
 def test_lockstep_config_rules_match_jax():
