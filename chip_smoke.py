@@ -76,7 +76,28 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               with K1 and K2 on the same lists without the warp cull, K2 in
               its other layout, the (warp, pair) visits the cull skips (and
               a check that none of them composites), the longest list's
-              block alone, and K6's registers and SASS pair loop.
+              block alone, and K6's registers and SASS pair loop;
+13. train_cli the training run as a user starts it, at full width: the eval
+              phase's synthetic scene (1920×1080, six training views, two
+              held out) with ``bench.py``'s 100k Gaussians as its point
+              cloud, ``cli.train.main`` at its defaults (pallas, mixed, tile
+              32, batched render, F = 21, order-9 se3 curves, SH 2,
+              ``max_pairs`` autosized, the visualizer and the final render's
+              child processes on; ``-r 1`` keeps 1920×1080) for 40
+              iterations with a densify event, the launch counters zeroed
+              just before and read just after; a resume from its
+              checkpoint, ``cli.evaluate.main`` and ``cli.metrics.main`` on
+              the run (a render past the session's budget must be
+              rendered again at one that holds it; the children's budget
+              growths are read from their output); then 20 more blur-phase
+              iterations of ``Trainer.train`` timed with CUDA events at each
+              drain, and 10 more, not timed, with their host syncs counted
+              under ``torch.cuda.set_sync_debug_mode("warn")``; the bare
+              step on the same state at the loop's budget and at the emitted
+              pairs + 10%, each with its forward stages; K1-K4 against their
+              plain versions on one step's inputs at the loop's budget (K3
+              and K4 in full, K1 and K2 on 64 sampled tiles); launches a
+              step, peak memory and each stage's seconds.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -86,9 +107,12 @@ without a CUDA card or without the package beside this script.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,7 +223,20 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    """max |a - b|, the difference taken in float64 a slab of ~2^24
+    elements at a time along the longest axis: a float64 copy of a whole
+    2^27-slot table would not fit beside the training run's tensors."""
+    import torch
+
+    a, b = torch.broadcast_tensors(a, b)
+    if a.dim() == 0 or a.numel() == 0:
+        return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    dim = max(range(a.dim()), key=lambda d: a.shape[d])
+    n = a.shape[dim]
+    step = max(1, (1 << 24) * n // a.numel())
+    return max(float((a.narrow(dim, i, min(step, n - i)).double()
+                      - b.narrow(dim, i, min(step, n - i)).double()).abs().max())
+               for i in range(0, n, step))
 
 
 def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
@@ -891,7 +928,7 @@ def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj):
     dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
     dl_d = torch.zeros_like(D)
     return dict(bcfg=bcfg, flat=flat, compact=compact, staged=staged, C=C, D=D, T=T,
-                dl_pix=dl_pix, dl_d=dl_d, P=flat[0].shape[0])
+                n_con=n_con, dl_pix=dl_pix, dl_d=dl_d, P=flat[0].shape[0])
 
 
 def train_setup(torch, dev):
@@ -1026,7 +1063,8 @@ def phase_train(torch, dev):
          peak_memory_gb=round(peak_gb, 3), launches=launches, launches_per_step=1,
          loss=losses_seen, changed=changed, err_k2_sampled_tiles=err_k2, err_k4=err_k4,
          profile=profile)
-    return dict(k=k, pg=pg, launches=launches, err_k2=err_k2[1], err_k4=err_k4[1], k2_ms=k2_ms)
+    return dict(k=k, pg=pg, launches=launches, err_k2=err_k2[1], err_k4=err_k4[1], k2_ms=k2_ms,
+                step_ms=step_ms)
 
 
 def forward_stages(torch, bcfg, make_flat, bg, n_views: int, reps: int = 3,
@@ -1637,34 +1675,49 @@ def write_eval_run(torch, dev, root: str) -> dict:
 
 
 class RenderLog:
-    """Wraps ``render`` where the eval modules call it: every render's
-    pair count is held to the session's budget and recorded."""
+    """Wraps ``render`` where the eval modules call it (``session.render``,
+    which ``render_fitted`` calls): every render's pair count is recorded
+    with the budget it ran under and held to ``max_pairs`` unless that is
+    None. A render past its budget must be followed by the same view's
+    render at a budget that holds it (``render_fitted``); ``regrown``
+    counts them."""
 
-    def __init__(self, max_pairs: int):
+    def __init__(self, max_pairs: int | None):
         self.max_pairs, self.pairs, self.longest, self.calls = max_pairs, 0, 0, 0
+        self.budget, self.regrown, self.over = None, 0, None
 
     def install(self):
-        from deblurgs_tpu_torch.eval import pose_opt, session
+        from deblurgs_tpu_torch.eval import session
 
         real = session.render
 
         def render(*args, **kwargs):
             out = real(*args, **kwargs)
-            n = int(out.num_pairs)
-            if n > self.max_pairs:
+            n, budget = int(out.num_pairs), kwargs["cfg"].max_pairs
+            if self.max_pairs is not None and n > self.max_pairs:
                 raise AssertionError(f"pair overflow in evaluation: {n} > {self.max_pairs}")
+            if self.over is not None and (n != self.over or n > budget):
+                raise AssertionError(f"a render of {self.over} pairs past its budget was not "
+                                     f"rendered again at one that holds it ({n}, {budget})")
+            self.over = n if n > budget else None
+            self.regrown += n > budget
             self.pairs, self.calls = max(self.pairs, n), self.calls + 1
             self.longest = max(self.longest, int(out.max_per_tile))
+            self.budget = budget
             return out
 
-        session.render = pose_opt.render = render
+        session.render = render
         return real
+
+    def check(self):
+        if self.over is not None:
+            raise AssertionError(f"the last render ({self.over} pairs) was past its budget")
 
     @staticmethod
     def remove(real):
-        from deblurgs_tpu_torch.eval import pose_opt, session
+        from deblurgs_tpu_torch.eval import session
 
-        session.render = pose_opt.render = real
+        session.render = real
 
 
 def median(xs):
@@ -1864,6 +1917,367 @@ def phase_eval(torch, dev):
                 pg=pg, launches=launches, err_k5=err_k5, err_k6=err_k6)
 
 
+def write_train_scene(torch, dev, root: str) -> dict:
+    """The eval phase's synthetic scene (``write_eval_run``: 1920×1080 PNGs
+    along the eval arc, views 000 and 004 held out) with ``bench.py``'s
+    100k Gaussians as its COLMAP point cloud, each point in its Gaussian's
+    DC colour."""
+    from deblurgs_tpu_torch.core.sh import sh_to_rgb
+
+    run = write_eval_run(torch, dev, os.path.join(root, "eval_run"))
+    model = make_scene(EVAL_SIZE[2], 2, np.random.default_rng(SEED), dev)
+    pts = model.xyz.detach().cpu().numpy()
+    rgb = np.clip(sh_to_rgb(model.f_dc.detach()[:, 0]).cpu().numpy(), 0, 1)
+    rgb = (rgb * 255).round().astype(int)
+    with open(os.path.join(run["source"], "sparse", "0", "points3D.txt"), "w") as f:
+        for i, (p, c) in enumerate(zip(pts, rgb)):
+            f.write(f"{i} {p[0]:.7g} {p[1]:.7g} {p[2]:.7g} {c[0]} {c[1]} {c[2]} 0.5\n")
+    return run
+
+
+class Timed:
+    """Wraps a method or function where the training CLI looks it up, and
+    adds each call's seconds (the device synchronised before and after)."""
+
+    def __init__(self, torch, owner, name: str):
+        self.owner, self.name, self.real = owner, name, getattr(owner, name)
+        self.seconds, self.calls = 0.0, 0
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(owner, name, wrapped)
+
+    def remove(self):
+        setattr(self.owner, self.name, self.real)
+
+
+class ChildLog:
+    """Runs the training CLI's child commands as its ``do_system`` does (a
+    non-zero exit raises), their output echoed and kept, and reads from it
+    the session budget growths ``render_fitted`` prints."""
+
+    GROWTH = re.compile(r"a view emits (\d+) pairs: the session's max_pairs → (\d+)")
+
+    def __init__(self, owner):
+        self.owner, self.real, self.children = owner, owner.do_system, []
+
+        def do_system(cmd: str):
+            print(f"==== running: {cmd}", flush=True)
+            out = subprocess.run(cmd, shell=True, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            sys.stdout.write(out.stdout)
+            sys.stdout.flush()
+            self.children.append(dict(
+                module=cmd.split(" -m ")[1].split()[0], exit=out.returncode,
+                budget_growths=[[int(n), int(m)] for n, m in self.GROWTH.findall(out.stdout)]))
+            if out.returncode:
+                raise RuntimeError(f"command failed with code {out.returncode}: {cmd}")
+
+        owner.do_system = do_system
+
+    def remove(self):
+        self.owner.do_system = self.real
+
+
+def phase_train_cli(torch, dev, train_step_ms):
+    """The training run as a user starts it: ``cli.train.main`` at its
+    defaults (pallas, mixed, tile 32, batched render, F = 21, order-9 se3
+    curves, SH 2, autosized ``max_pairs``, visualizer and final render on)
+    on the synthetic 1920×1080 / 100k scene, 40 iterations with a densify
+    event, then a resume from its checkpoint, ``cli.evaluate.main`` and
+    ``cli.metrics.main`` on the run; 20 more blur-phase iterations of
+    ``Trainer.train`` timed with CUDA events at each drain, and 10 more,
+    not timed, with their host syncs counted; the bare step on the same
+    state at the loop's budget and at the emitted pairs + 10%, with its
+    forward stages; and K1-K4 against their plain versions on one step's
+    inputs at the loop's budget. Returns K1-K4's largest absolute errors."""
+    import tempfile
+    import warnings
+
+    from deblurgs_tpu_torch.cli import evaluate, metrics as metrics_cli, train as train_cli
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+    from deblurgs_tpu_torch.train import loop, step as step_lib
+    from deblurgs_tpu_torch.utils import visualizer
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        run = write_train_scene(torch, dev, root)
+        write_s = time.perf_counter() - t0
+        source, model = run["source"], os.path.join(root, "model")
+        seen = {"loss": [], "num_pairs": [], "overflowed": 0}
+        trainers = []
+        real_train = loop.Trainer.train
+
+        def train(self, state, *args, **kwargs):
+            def record(it, m):
+                seen["loss"].append(float(m.loss))
+                seen["num_pairs"].append(int(m.num_pairs))
+                seen["overflowed"] += int(m.overflowed)
+
+            self.on_metrics = record
+            trainers.append(self)
+            return real_train(self, state, *args, **kwargs)
+
+        grown = []
+        real_grow = loop.grow_capacity
+        loop.grow_capacity = lambda st, cap: (grown.append(cap), real_grow(st, cap))[1]
+        loop.Trainer.train = train
+        children = ChildLog(train_cli)
+        timers = {name: Timed(torch, loop.Trainer, name) for name in ("autosize_max_pairs",)}
+        timers.update({name: Timed(torch, visualizer.Visualizer, name)
+                       for name in ("run", "traj_render", "visualize_alignment", "save_video")})
+        timers["final_render"] = Timed(torch, train_cli, "do_system")
+        flags = ["-s", source, "-m", model, "-r", "1", "--iterations", "40",
+                 "--curve_start_iter", "10", "--densify_from_iter", "15",
+                 "--densification_interval", "10", "--densify_until_iter", "35",
+                 "--save_iterations", "20", "--checkpoint_iterations", "20",
+                 "--render_iterations", "30", "--eval", "--llffhold", str(EVAL_HOLD),
+                 "--device", str(dev)]
+        try:
+            # ---- the main path, counted: the training CLI at its defaults ----
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            zero_counts()
+            t0 = time.perf_counter()
+            state = train_cli.main(flags)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_counts()
+            peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+            trainer = trainers[0]
+            max_pairs = trainer.rcfg.max_pairs
+            cli_seen = dict(seen, loss=list(seen["loss"]), num_pairs=list(seen["num_pairs"]))
+            # ---- resume from the iteration-20 checkpoint for four iterations ----
+            t0 = time.perf_counter()
+            resumed = train_cli.main([
+                "-s", source, "-m", os.path.join(root, "resumed"), "-r", "1",
+                "--start_checkpoint", os.path.join(model, "chkpnt20.npz"), "--iterations", "24",
+                "--curve_start_iter", "10", "--densify_from_iter", "15",
+                "--densification_interval", "10", "--densify_until_iter", "35",
+                "--eval", "--llffhold", str(EVAL_HOLD), "--disable_curve_visualize",
+                "--skip_final_render", "--device", str(dev)])
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        finally:
+            loop.Trainer.train = real_train
+            loop.grow_capacity = real_grow
+            for timer in timers.values():
+                timer.remove()
+            children.remove()
+        # ---- evaluate (a few pose iterations) and the metrics CLI on the run;
+        # a render past the session's budget must be rendered again ----
+        log = RenderLog(None)
+        real = log.install()
+        try:
+            t0 = time.perf_counter()
+            results = evaluate.main(["-m", model, "-r", "1", "--num_iter_per_view", "3",
+                                     "--device", str(dev)])
+            torch.cuda.synchronize()
+            evaluate_s = time.perf_counter() - t0
+        finally:
+            RenderLog.remove(real)
+        log.check()
+        t0 = time.perf_counter()
+        scores = metrics_cli.main(["-m", model, "--device", str(dev)])
+        metrics_s = time.perf_counter() - t0
+        with open(os.path.join(model, "eval.txt")) as f:
+            eval_txt = f.read().strip().splitlines()
+        with open(os.path.join(model, "results.json")) as f:
+            results_json = json.load(f)
+        with open(os.path.join(model, "time.txt")) as f:
+            time_txt = f.read().strip().splitlines()
+        files = sorted(os.path.relpath(os.path.join(d, x), model)
+                       for d, _, names in os.walk(model) for x in names)
+
+    # ---- the timed window: 20 more blur-phase iterations, no visualizer ----
+    timed = loop.Trainer(
+        scene=trainer.scene, gcfg=trainer.gcfg, mcfg=trainer.mcfg,
+        ocfg=dataclasses.replace(trainer.ocfg, iterations=1000), rcfg=trainer.rcfg,
+        tone_mapping=trainer.tone_mapping, batched_render=trainer.batched_render,
+        device=dev, seed=SEED + 13)
+    first = int(state.step)
+    marks, walls = [], []
+    real_drain = timed._drain
+
+    def drain(st, rcfg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        walls.append(time.perf_counter())
+        return real_drain(st, rcfg)
+
+    timed._drain = drain
+    state = timed.train(state, first, iterations=first + 9)   # warm-up: one drain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_timed = torch.cuda.memory_allocated()
+    marks.clear()
+    walls.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    zero_counts()
+    start.record()
+    wall0 = time.perf_counter()
+    state = timed.train(state, first + 10, iterations=first + 29)
+    torch.cuda.synchronize()
+    timed_launches = read_counts()
+    timed_peak_gb = (torch.cuda.max_memory_allocated() - held_timed) / 1e9
+    edges = [start] + marks
+    window_ms = [a.elapsed_time(b) / timed.sync_every for a, b in zip(edges, edges[1:])]
+    host_ms = [(b - a) * 1e3 / timed.sync_every for a, b in zip([wall0] + walls, walls)]
+    timed._drain = real_drain
+
+    # ---- host syncs: 10 more iterations under the sync debug mode, not timed ----
+    window_pairs = []              # read after the window: no sync of its own
+    timed.on_metrics = lambda it, m: window_pairs.append(m.num_pairs)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state = timed.train(state, first + 30, iterations=first + 39)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    syncs = sum(sync_sites.values())
+    window_pairs = [int(x) for x in window_pairs]
+
+    # ---- the bare step on the same state, the loop's budget against the
+    # emitted pairs + 10% (the train phase's sizing), and its forward stages ----
+    sh_degree, n_sub, random_sample = timed.phase_statics(int(state.step))
+    tight = max((int(max(window_pairs) * 1.1) + 1023) & ~1023, 1 << 14)
+    budgets = {"loop": max_pairs, "tight": tight}
+    statics = {k: timed.statics(sh_degree, n_sub, random_sample,
+                                dataclasses.replace(timed.rcfg, max_pairs=b))
+               for k, b in budgets.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    n_views = timed.scene.num_train
+    bare = {k: {"ms": [], "num_pairs": [], "overflowed": 0} for k in budgets}
+    for rep in range(6):
+        for k, st in statics.items():
+            cam = rep % n_views
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, m = step_lib.train_step(state, timed._gts[cam], cam, timed._proj, st,
+                                       generator=gen)
+            b.record()
+            torch.cuda.synchronize()
+            if rep:                                       # the first of each is warm-up
+                bare[k]["ms"].append(a.elapsed_time(b))
+            bare[k]["num_pairs"].append(int(m.num_pairs))
+            bare[k]["overflowed"] += int(m.overflowed)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def make_flat():
+        nu = motion_lib.sample_nus(state.motion, [0], timed.mcfg)
+        cams = motion_lib.subframe_cameras_batch(state.motion, [0], nu, timed._proj, timed.mcfg)
+        return flat_preprocess((gm.render_inputs(state.params, timed.gcfg), sh_degree), cams,
+                               timed.scene.camera_static, timed.rcfg, state.aux.active)
+
+    for k, st in statics.items():
+        bare[k]["max_pairs"] = budgets[k]
+        bare[k]["median_ms"] = round(median(bare[k]["ms"]), 4)
+        bare[k]["ms"] = [round(x, 4) for x in bare[k]["ms"]]
+        bare[k]["forward_stages_no_grad_ms"] = forward_stages(
+            torch, st.rcfg.blend_config(st.cs, n_images=n_sub), make_flat, bg, n_sub)
+
+    # ---- K1-K4 against their plain versions on one step's inputs at the
+    # loop's budget: K3 and K4 in full, K1 and K2 on 64 sampled tiles ----
+    st = statics["loop"]
+    k = step_kernel_inputs(torch, st, state, timed._gts[0], bg, 0, timed._proj)
+    bcfg, staged = k["bcfg"], k["staged"]
+    fslot = cuda_blend.broadcast_fields(k["compact"].ctable, k["compact"].gauss_c)
+    err_k3 = check_k3(torch, "train_cli", fslot, k["compact"])
+    del fslot
+    tiles = torch.from_numpy(np.random.default_rng(SEED + 15).choice(
+        bcfg.total_tiles, 64, replace=False)).to(dev)
+    err_k1 = check_k1(torch, "train_cli (64 tiles)", bcfg, staged,
+                      (k["C"], k["D"], k["T"], k["n_con"]), tiles=tiles)
+    kargs = (bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
+    pg = cuda_blend_mixed.backward_mixed(bcfg, staged, *kargs)
+    err_k2 = check_k2(torch, "train_cli (64 tiles)", bcfg, staged, *kargs, pg, tiles=tiles)
+    err_k4 = check_k4(torch, "train_cli", staged, pg, k["P"])
+    kernel_check = dict(max_pairs=staged.fields.shape[1], num_pairs=int(k["flat"][-1].sum()),
+                        err_k3=err_k3, err_k1_sampled_tiles=err_k1,
+                        err_k2_sampled_tiles=err_k2, err_k4=err_k4)
+    del k, staged, pg, kargs
+
+    need = ["args.txt", "cfg_args", "input.ply", "cameras.json", "time.txt", "cm.npz",
+            "chkpnt20.npz", "point_cloud/iteration_20/point_cloud.ply",
+            "point_cloud/iteration_40/point_cloud.ply"]
+    missing = [f for f in need if f not in files]
+    for d in ("spiral/iteration_40/", "trainview/iteration_40/"):
+        if not any(f.startswith(d) for f in files):
+            missing.append(d)
+    if not any(f in files for f in ("vis/training.mp4", "vis/training.gif")):
+        missing.append("vis/training.{mp4,gif}")
+    if missing:
+        raise AssertionError(f"the training run did not write {missing}")
+    if len(cli_seen["loss"]) != 40 or not all(map(math.isfinite, cli_seen["loss"])):
+        raise AssertionError(f"drained losses: {cli_seen['loss']}")
+    if cli_seen["overflowed"] or time_txt[-1] != "Overflowed iterations = 0":
+        raise AssertionError(f"pair overflow in training: {time_txt}")
+    for name in ("K1", "K2", "K3", "K4"):
+        if launches[name] < 40:
+            raise AssertionError(f"{name} launched {launches[name]} times by the training CLI")
+    if resumed.step != 25 or int(state.step) != first + 40 or first % 10 != 1:
+        raise AssertionError(f"resume at {resumed.step}, timed windows at {state.step}")
+    if int(state.overflow_count) or bare["loop"]["overflowed"]:
+        raise AssertionError("pair overflow in the timed windows or the bare step")
+    if [c["module"] for c in children.children] != [
+            "deblurgs_tpu_torch.cli.render_spiral", "deblurgs_tpu_torch.cli.render_trainview"]:
+        raise AssertionError(f"child processes: {children.children}")
+    if [line.split(":")[0] for line in eval_txt] != ["unfit", "fit"]:
+        raise AssertionError(f"eval.txt: {eval_txt}")
+    if sorted(results_json) != ["fit", "unfit"] or not all(
+            math.isfinite(results_json[k]["PSNR"]) for k in results_json):
+        raise AssertionError(f"results.json: {results_json}")
+    if not all(math.isfinite(results[k]["PSNR"]) for k in ("unfit", "fit")):
+        raise AssertionError(f"evaluate: {results}")
+    for name in ("K1", "K2", "K3", "K4"):
+        if timed_launches[name] != 20:
+            raise AssertionError(f"{name}: {timed_launches[name]} launches in 20 iterations")
+    emit("train_cli", width=EVAL_SIZE[0], height=EVAL_SIZE[1], points=EVAL_SIZE[2],
+         train_views=trainer.scene.num_train, subframes=trainer.mcfg.n_subframes,
+         tile=trainer.rcfg.tile_w, iterations=40, autosize_s=round(
+             timers["autosize_max_pairs"].seconds, 3), max_pairs=max_pairs,
+         max_num_pairs=max(cli_seen["num_pairs"]), num_pairs=cli_seen["num_pairs"],
+         gaussian_capacity_growths=grown, final_gaussians=int(state.aux.active.sum()),
+         capacity=int(state.params.xyz.shape[0]), loss=[round(x, 6) for x in cli_seen["loss"]],
+         launches=launches, peak_memory_gb=round(peak_gb, 3),
+         loop_ms_per_iter=round(median(window_ms), 4),
+         loop_ms_per_iter_windows=[round(x, 4) for x in window_ms],
+         loop_host_ms_per_iter=[round(x, 4) for x in host_ms],
+         bare_step=bare, train_phase_step_ms=round(median(train_step_ms), 4),
+         syncs_per_iter=syncs / 10, sync_window_num_pairs=window_pairs,
+         sync_sites_per_iter={k: v / 10 for k, v in sync_sites.most_common(16)},
+         launches_per_iter={k: v / 20 for k, v in timed_launches.items()},
+         timed_peak_memory_gb=round(timed_peak_gb, 3), kernel_check=kernel_check,
+         seconds={"write_scene": round(write_s, 3), "cli": round(cli_s, 3),
+                  "visualizer": round(sum(timers[k].seconds for k in (
+                      "run", "traj_render", "visualize_alignment", "save_video")), 3),
+                  "visualizer_shots": timers["run"].calls,
+                  "save_video": round(timers["save_video"].seconds, 3),
+                  "final_render": round(timers["final_render"].seconds, 3),
+                  "resume": round(resume_s, 3), "evaluate": round(evaluate_s, 3),
+                  "metrics": round(metrics_s, 3)},
+         children=children.children, session_max_pairs=log.budget,
+         eval_max_num_pairs=log.pairs, eval_renders=log.calls,
+         eval_renders_past_budget=log.regrown, unfit=results["unfit"], fit=results["fit"],
+         metrics=scores[model], time_txt=time_txt)
+    return dict(K1=err_k1, K2=err_k2[1], K3=err_k3, K4=err_k4[1])
+
+
 def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
     """K5 and K6 timed at the eval phase's shapes beside their plain
     versions, bounds (reckoned as for K1 and K2), times before the
@@ -2004,6 +2418,14 @@ def main() -> int:
                                   max(k4_parity, tr["err_k4"], k4_trained))
         kernels += phase_yardstick_lockstep(torch, ev, max(k5_parity, ev["err_k5"]),
                                             max(k6_parity, ev["err_k6"]))
+    train_step_ms = tr["step_ms"]
+    del sl, tr, ev           # the training run below needs the card's memory
+    torch.cuda.empty_cache()
+    cli_errs = phase_train_cli(torch, dev, train_step_ms)
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        if key in cli_errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"], cli_errs[key])
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
 """deblurgs_tpu_torch — PyTorch/CUDA port of the DeblurGS framework.
 
-The render path, the train step and held-out evaluation of ``deblurgs_tpu``
+The render path, training and held-out evaluation of ``deblurgs_tpu``
 (camera-motion blur synthesis over per-image SE(3) Bézier trajectories,
 rendered by a tile-binned Gaussian-splatting rasterizer, trained jointly
 with the trajectories; ``data/`` reads datasets and trained runs,
-``eval/`` and ``cli/evaluate.py`` score held-out views after refining
-their poses) rebuilt on PyTorch, with hand-written CUDA kernels for the
+``train/loop.py`` and ``cli/train.py`` run a training schedule,
+``utils/`` watches it, ``eval/`` and ``cli/`` render, export and score a
+trained run) rebuilt on PyTorch, with hand-written CUDA kernels for the
 hot spots:
 
 - ``ops/cuda_blend.py``: pair staging (expansion, tile cull, two-key sort),

@@ -1,2 +1,3 @@
-"""Command-line entry points (counterpart of ``deblurgs_tpu/cli``; only
-``evaluate`` is ported so far)."""
+"""Command-line entry points (counterpart of ``deblurgs_tpu/cli``): ``train``
+(with its ``args``), ``render_spiral``, ``render_trainview``, ``evaluate``
+and ``metrics``."""

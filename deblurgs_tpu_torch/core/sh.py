@@ -73,7 +73,8 @@ def sh_to_color(sh: torch.Tensor, means: torch.Tensor, campos: torch.Tensor,
     """
     dirs = means - campos[..., None, :]
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-    rgb = eval_sh(deg, torch.swapaxes(sh, -1, -2), dirs)
+    # degree 0 reads no direction: broadcast over the camera batch
+    rgb = torch.broadcast_to(eval_sh(deg, torch.swapaxes(sh, -1, -2), dirs), dirs.shape)
     if use_sigmoid:
         return torch.sigmoid(rgb)
     return torch.clamp(rgb + 0.5, min=0.0)

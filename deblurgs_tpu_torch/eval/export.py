@@ -6,7 +6,8 @@ around the mean trained pose with its look-at from the rendered centre
 depth, depth colourisation, video writing and ``to_uint8``. The colour
 maps are matplotlib's "jet" and "jet_r" rebuilt from their segment data
 (:func:`colormap`), so exporting needs no matplotlib; ``make_video``
-needs ``imageio``, imported when called.
+writes through ``imageio`` where it is installed and through PIL where it
+is not.
 """
 
 from __future__ import annotations
@@ -141,20 +142,42 @@ def depth_colorize(depths: np.ndarray, z_near=0.01, z_far=100.0,
     return (colormap("jet_r", d) * 255).astype(np.uint8)
 
 
-def make_video(imgs, path, fps=32):
-    """mp4 through imageio when ffmpeg is available, else an animated gif
-    (reference ``export_utils.make_video``)."""
-    import imageio
+def _gif_frame(frame: np.ndarray):
+    """A PIL palette image of an RGB uint8 frame: its own colours exactly
+    when it has at most 256 of them, else a fast octree quantization (PIL's
+    default median cut takes seconds a 1080p frame)."""
+    from PIL import Image
 
+    im = Image.fromarray(frame)
+    colors = im.getcolors(256)
+    if colors is None:
+        return im.quantize(method=Image.Quantize.FASTOCTREE)
+    flat = [c for _, rgb in colors for c in rgb]
+    palette = Image.new("P", (1, 1))
+    palette.putpalette(flat + flat[:3] * (256 - len(colors)))
+    return im.quantize(palette=palette, dither=Image.Dither.NONE)
+
+
+def make_video(imgs, path, fps=32) -> str:
+    """mp4 through imageio when it and ffmpeg are available, else an animated
+    gif at the same stem (reference ``export_utils.make_video``), written
+    with PIL. Returns the path written."""
+    frames = [np.asarray(img) for img in imgs]
     try:
+        import imageio
+
         writer = imageio.get_writer(path, fps=fps)
-        for img in imgs:
-            writer.append_data(np.asarray(img))
+        for frame in frames:
+            writer.append_data(frame)
         writer.close()
+        return path
     except (ImportError, RuntimeError, ValueError, OSError):
-        alt = os.path.splitext(path)[0] + ".gif"
-        imageio.mimsave(alt, [np.asarray(i) for i in imgs], duration=1.0 / fps)
-        print(f"[video] ffmpeg unavailable; wrote {alt}")
+        pass
+    alt = os.path.splitext(path)[0] + ".gif"
+    pil = [_gif_frame(frame) for frame in frames]
+    pil[0].save(alt, save_all=True, append_images=pil[1:], duration=1000.0 / fps, loop=0)
+    print(f"[video] no mp4 writer; wrote {alt}")
+    return alt
 
 
 def to_uint8(img) -> np.ndarray:

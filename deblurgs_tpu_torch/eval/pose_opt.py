@@ -27,10 +27,10 @@ import torch
 
 from deblurgs_tpu_torch.core import transforms as tf
 from deblurgs_tpu_torch.core.camera import CameraArrays, make_camera_arrays
+from deblurgs_tpu_torch.eval.session import render_fitted
 from deblurgs_tpu_torch.models import gaussians as gm
 from deblurgs_tpu_torch.models import tonemap as tm
 from deblurgs_tpu_torch.models.motion import _rotmat_to_quat
-from deblurgs_tpu_torch.ops.rasterize import render
 from deblurgs_tpu_torch.train.losses import l1_loss
 
 
@@ -76,7 +76,6 @@ def optimize_test_poses(session, gt_images: torch.Tensor, rotations: torch.Tenso
         generator = torch.Generator().manual_seed(0)
     with torch.no_grad():
         rin = gm.render_inputs(session.params, session.gcfg)
-    cs = session.scene.camera_static
     n = quat.shape[0]
     bg = torch.zeros(3, device=session.device)
     ema = 0.0
@@ -84,9 +83,7 @@ def optimize_test_poses(session, gt_images: torch.Tensor, rotations: torch.Tenso
         order = orders[epoch] if orders is not None else torch.randperm(n, generator=generator)
         for idx in [int(i) for i in order]:
             cam = pose_to_camera(PoseParams(quat, trans), idx, proj)
-            out = render(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
-                         rin["shs"], cam, cs, bg, cfg=session.rcfg,
-                         sh_degree=session.gcfg.sh_degree, active=session.aux.active)
+            out = render_fitted(session, rin, cam, bg)
             img = torch.clamp(tm.tone_map(out.image, session.tone_mapping), 0.0, 1.0)
             loss = l1_loss(img, gt_images[idx])
             opt.zero_grad(set_to_none=False)

@@ -7,13 +7,16 @@ persisted ``cfg_args``. A key missing from ``cfg_args`` takes JAX's
 default: ``kernel_layout`` "lockstep", ``tile`` 16, ``window`` 1,
 ``backend`` "xla" (not ported yet: rendering such a session raises until
 ``--backend pallas`` overrides it), and ``max_pairs`` ≤ 0 or missing means
-``1 << 19``. The session's tensors live on its device; the scene stays on
-the host.
+``1 << 19`` to start with. A view that emits more pairs than the budget
+holds grows it and renders again (:func:`render_fitted`), where JAX's
+session composites a truncated list. The session's tensors live on its
+device; the scene stays on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from argparse import Namespace
 
@@ -71,7 +74,7 @@ def load_session(model_path: str, source_path: str | None = None,
     mcfg = MotionConfig(curve_order=args.curve_order, n_subframes=args.num_subframes,
                         curve_type=args.curve_type)
     # max_pairs <= 0 is the training CLI's "auto-size at train start" marker;
-    # eval renders one view, so the plain single-view default applies
+    # eval renders one view: the single-view default, grown by render_fitted
     mp = getattr(args, "max_pairs", 1 << 19)
     rcfg = RasterizeConfig(
         backend=backend or getattr(args, "backend", "xla"),
@@ -101,16 +104,31 @@ def load_session(model_path: str, source_path: str | None = None,
                           tone_mapping=getattr(args, "tone_mapping_type", "gamma"), device=dev)
 
 
+def render_fitted(session: TrainedSession, rin: dict, cam: CameraArrays, bg: torch.Tensor):
+    """``render`` of one view at the session's pair budget. A view that
+    emits more pairs than the budget holds would composite a truncated list;
+    instead the budget grows to the next power of two above 1.5× the pairs
+    emitted, for this view and every later one, and the view renders again."""
+    args = (rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"], rin["shs"], cam,
+            session.scene.camera_static, bg)
+    kw = dict(sh_degree=session.gcfg.sh_degree, active=session.aux.active)
+    out = render(*args, cfg=session.rcfg, **kw)
+    n = int(out.num_pairs)
+    if n <= session.rcfg.max_pairs:
+        return out
+    session.rcfg = dataclasses.replace(session.rcfg,
+                                       max_pairs=1 << math.ceil(math.log2(1.5 * n)))
+    print(f"[pairs] a view emits {n} pairs: the session's max_pairs → "
+          f"{session.rcfg.max_pairs}")
+    return render(*args, cfg=session.rcfg, **kw)
+
+
 def render_view(session: TrainedSession, cam: CameraArrays, *, tone_map: bool = True,
                 bg: torch.Tensor | None = None):
     """Render one view of a loaded session: (image [H, W, 3] clamped to
     [0, 1], tone-mapped unless ``tone_map`` is False; depth [H, W])."""
-    gcfg = session.gcfg
     bg = torch.zeros(3, device=session.device) if bg is None else bg
     with torch.no_grad():
-        rin = gm.render_inputs(session.params, gcfg)
-        out = render(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
-                     rin["shs"], cam, session.scene.camera_static, bg, cfg=session.rcfg,
-                     sh_degree=gcfg.sh_degree, active=session.aux.active)
+        out = render_fitted(session, gm.render_inputs(session.params, session.gcfg), cam, bg)
         img = tm.tone_map(out.image, session.tone_mapping) if tone_map else out.image
         return torch.clamp(img, 0.0, 1.0), out.depth

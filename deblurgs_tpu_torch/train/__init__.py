@@ -1,3 +1,3 @@
-"""Training: hyperparameters, schedules, losses, Adam, the train step and
-its checkpoint (counterpart of ``deblurgs_tpu/train``; the host loop
-``loop.py`` is not ported yet)."""
+"""Training: hyperparameters, schedules, losses, Adam, the train step, its
+checkpoint and the host loop that drives it through a run (``loop.py``)
+(counterpart of ``deblurgs_tpu/train``)."""
