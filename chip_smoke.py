@@ -98,6 +98,28 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               plain versions on one step's inputs at the loop's budget (K3
               and K4 in full, K1 and K2 on 64 sampled tiles); launches a
               step, peak memory and each stage's seconds.
+14. backends  the xla and oracle backends and the native host library:
+              (a) the eval phase's run, whose ``cfg_args`` has no
+              ``backend`` key, through ``cli.evaluate.main`` (2 pose
+              iterations a view) and ``cli.render_trainview.main`` without
+              ``--backend`` (xla: every launch counter must stay 0, a
+              render past ``k_max`` must be rendered again), the xla image
+              against K5's on one held-out view, ``render_view`` on both,
+              the xla pose step, and the walk forward and backward beside
+              K5 and K6 on that view's lists; (d) the native library built
+              and loaded, its exact 3-NN of the train phase's 100k points
+              against the on-card exact search, and ``points3D.bin`` of the
+              eval scene's 100k Gaussians parsed bit for bit as the Python
+              reader does; (c) at 128×96 with 2,000 Gaussians, xla,
+              pallas/mixed and pallas/lockstep against the oracle (images
+              atol 1e-5 / rtol 1e-4, gradients 2e-5 scaled), every kernel
+              counted; (b) one xla train step at the train phase's point
+              (per-view renders, a one-view pair budget, ``k_max`` the next
+              power of two over the longest list) against the pallas
+              per-view step from the same state and draws (loss 1e-5
+              relative; each gradient within max(2e-4, 4× the spread of a
+              second xla step) scaled; the updated leaves reported), both
+              xla steps timed.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -131,6 +153,7 @@ SLICE_SIZE = (1920, 1080, 100_000)
 TRAINED_SIZE = 256
 TRAIN_SIZE = (1920, 1080, 100_000)
 EVAL_SIZE = (1920, 1080, 100_000)
+ORACLE_SIZE = (128, 96, 2000)   # the backends phase's oracle anchor
 EVAL_CAMERAS, EVAL_HOLD = 8, 4   # views 000 and 004 held out (llffhold 4)
 POSE_TIMED_ITERS = 10         # iterations a view in each timed optimize_test_poses
 GRAD_ATOL = 2e-5              # |got - want| / max|want| for gradients
@@ -140,6 +163,9 @@ K2_PREVIOUS_MS, K4_PREVIOUS_MS = 49.77, 14.14
 # K1 and K3 before their redesign, on the same card (PERF.md's kernel table)
 K1_PREVIOUS_MS = {"slice": 6.19, "train_lists": 15.64}
 K3_PREVIOUS_MS = 0.718        # slice
+# K3 after its redesign (PR 6's run on the same card, PERF.md's kernel
+# table): writing 0 rather than NaN for a rank out of range must not move it
+K3_PR6_MS = {"slice": 0.232, "train_lists": 1.879}
 # K1 on the same card after each design move of its redesign, as a harness
 # beside this script's yardstick timed them while the moves were kernel
 # variants (since folded into the one design; PERF.md's Findings):
@@ -1243,6 +1269,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     bcfg, st, c = sl["bcfg"], sl["staged"], sl["compact"]
     k3 = k3_yardstick(torch, c, 20)
     k3["previous_ms"] = K3_PREVIOUS_MS
+    k3["pr6_ms"] = K3_PR6_MS["slice"]
 
     # K1: ranges as int32 so the timed call is the launch alone
     st32 = st._replace(tile_start=st.tile_start.to(torch.int32),
@@ -1327,6 +1354,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                                        share=issue_ms / k1_train_ms)
     # K3 on the same lists
     k3_train = k3_yardstick(torch, k["compact"], 10)
+    k3_train["pr6_ms"] = K3_PR6_MS["train_lists"]
 
     # K4 on the main path (the staging's runs, sums to original rows) and by
     # rank array (the wrapper's sort), the plain version and index_add_
@@ -1685,6 +1713,8 @@ class RenderLog:
     def __init__(self, max_pairs: int | None):
         self.max_pairs, self.pairs, self.longest, self.calls = max_pairs, 0, 0, 0
         self.budget, self.regrown, self.over = None, 0, None
+        self.k_max = set()        # the k_max of every render (the xla walk's cap)
+        self.k_over, self.k_regrown = None, 0
 
     def install(self):
         from deblurgs_tpu_torch.eval import session
@@ -1702,8 +1732,17 @@ class RenderLog:
             self.over = n if n > budget else None
             self.regrown += n > budget
             self.pairs, self.calls = max(self.pairs, n), self.calls + 1
-            self.longest = max(self.longest, int(out.max_per_tile))
+            longest, k_max = int(out.max_per_tile), kwargs["cfg"].k_max
+            if self.k_over is not None and (longest != self.k_over or longest > k_max):
+                raise AssertionError(f"an xla render whose longest list ({self.k_over}) "
+                                     f"passed k_max was not rendered again at one that "
+                                     f"holds it ({longest}, {k_max})")
+            past = kwargs["cfg"].backend == "xla" and longest > k_max
+            self.k_over = longest if past else None
+            self.k_regrown += past
+            self.longest = max(self.longest, longest)
             self.budget = budget
+            self.k_max.add(k_max)
             return out
 
         session.render = render
@@ -1712,6 +1751,9 @@ class RenderLog:
     def check(self):
         if self.over is not None:
             raise AssertionError(f"the last render ({self.over} pairs) was past its budget")
+        if self.k_over is not None:
+            raise AssertionError(f"the last render's longest list ({self.k_over}) was past "
+                                 "its k_max")
 
     @staticmethod
     def remove(real):
@@ -2387,6 +2429,428 @@ def phase_yardstick_lockstep(torch, ev, k5_err: float, k6_err: float):
     ]
 
 
+# ---------------------------------------------------------------------------
+# the xla and oracle backends and the native host library
+# ---------------------------------------------------------------------------
+
+
+def write_points3d_bin(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                       rng: np.random.Generator) -> None:
+    """A COLMAP ``points3D.bin`` of these points: a reprojection error and a
+    track of 2-5 (image, point2D) entries each, drawn from ``rng``."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for i, (p, c) in enumerate(zip(xyz, rgb)):
+            n = int(rng.integers(2, 6))
+            f.write(struct.pack("<QdddBBBd", i, *map(float, p), *map(int, c),
+                                float(rng.uniform(0.1, 2.0))))
+            f.write(struct.pack("<Q", n))
+            f.write(rng.integers(0, 1000, 2 * n).astype("<i4").tobytes())
+
+
+def median_ms(torch, fn, reps: int = 5, warmup: int = 1) -> tuple:
+    """(median, all) of ``reps`` timed calls of ``fn``, each between CUDA
+    events and synchronised."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return median(times), [round(x, 4) for x in times]
+
+
+def backends_eval(torch, dev, run) -> dict:
+    """(a) The eval run, whose ``cfg_args`` has no ``backend`` key, through
+    ``cli.evaluate.main`` and ``cli.render_trainview.main`` without
+    ``--backend`` (xla, 2 pose iterations a view), the launch counters
+    zeroed before and read after (the walk launches no kernel); then
+    ``render_view`` on xla and on pallas/lockstep (K5) on one held-out view,
+    and the xla pose step."""
+    from deblurgs_tpu_torch.cli import evaluate, render_trainview
+    from deblurgs_tpu_torch.data.scene import load_image
+    from deblurgs_tpu_torch.eval import pose_opt
+    from deblurgs_tpu_torch.eval.session import load_session, render_view
+
+    log = RenderLog(None)
+    real = log.install()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(["-m", run["model"], "-r", "1", "--num_iter_per_view", "2",
+                                 "--device", str(dev)])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        t0 = time.perf_counter()
+        out_dir = render_trainview.main(["-m", run["model"], "-r", "1", "--device", str(dev)])
+        torch.cuda.synchronize()
+        trainview_s = time.perf_counter() - t0
+        launches = read_counts()
+        log.check()
+    finally:
+        RenderLog.remove(real)
+    if any(launches.values()):
+        raise AssertionError(f"the xla path launched a compositing kernel: {launches}")
+    for split in ("unfit", "fit"):
+        if not all(math.isfinite(results[split][k]) for k in ("PSNR", "SSIM")):
+            raise AssertionError(f"non-finite metrics on xla: {results}")
+    frames = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if len(frames) != EVAL_CAMERAS - len(range(0, EVAL_CAMERAS, EVAL_HOLD)):
+        raise AssertionError(f"render_trainview wrote {frames}")
+
+    sx = load_session(run["model"], resolution=1, device=dev)
+    sp = load_session(run["model"], resolution=1, backend="pallas", device=dev)
+    if (sx.rcfg.backend, sp.rcfg.layout) != ("xla", "lockstep"):
+        raise AssertionError(f"sessions: {sx.rcfg}, {sp.rcfg}")
+    test = sx.scene.info.test_cameras
+    R = torch.as_tensor(np.stack([c.R for c in test]), dtype=torch.float32, device=dev)
+    T = torch.as_tensor(np.stack([c.T for c in test]), dtype=torch.float32, device=dev)
+    proj = torch.as_tensor(sx.scene.proj, device=dev)
+    cam0 = pose_opt.pose_to_camera(pose_opt.init_pose_params(R, T), 0, proj)
+    img_x, dep_x = render_view(sx, cam0, tone_map=False)
+    img_p, dep_p = render_view(sp, cam0, tone_map=False)
+    err = check_close("xla image against K5's", img_x, img_p, atol=1e-5, rtol=1e-4)
+    depth_err = max_err(dep_x, dep_p)
+    zero_counts()
+    xla_ms, xla_all = median_ms(torch, lambda: render_view(sx, cam0))
+    if any(read_counts().values()):
+        raise AssertionError("render_view on xla launched a compositing kernel")
+    k5_ms, k5_all = median_ms(torch, lambda: render_view(sp, cam0))
+    gts = torch.as_tensor(np.stack([load_image(c, 1) for c in test]), device=dev)
+
+    def refine():
+        pose_opt.optimize_test_poses(sx, gts, R, T, proj, num_iter_per_view=2,
+                                     lr_trans=5e-3, verbose=False)
+
+    pose_ms, pose_all = median_ms(torch, refine, reps=3)
+    steps = 2 * len(test)
+    walks = walk_times(torch, sp, cam0, gts[0])
+    return dict(evaluate_s=round(eval_s, 3), render_trainview_s=round(trainview_s, 3),
+                unfit=results["unfit"], fit=results["fit"], launches=launches,
+                renders=log.calls, longest_list=log.longest, k_max_seen=sorted(log.k_max),
+                k_max_regrown=log.k_regrown, session_k_max=sx.rcfg.k_max,
+                max_num_pairs=log.pairs, peak_memory_gb=round(peak_gb, 3),
+                xla_vs_k5_image_max_abs=err, xla_vs_k5_depth_max_abs=depth_err,
+                render_view_ms={"xla": round(xla_ms, 4), "pallas_lockstep_K5": round(k5_ms, 4)},
+                render_view_ms_all={"xla": xla_all, "pallas_lockstep_K5": k5_all},
+                xla_pose_step_ms=round(pose_ms / steps, 4),
+                xla_pose_step_ms_all=[round(x / steps, 4) for x in pose_all],
+                same_view_ms=walks)
+
+
+def walk_times(torch, session, cam, gt) -> dict:
+    """The xla walk forward and backward (``tile_blend._xla_forward`` /
+    ``_xla_backward``) beside K5 and K6 on the same view's lists (uncut:
+    the walk and the lockstep kernels composite the same pairs), with an
+    L1 cotangent; medians of 3 (ms)."""
+    from deblurgs_tpu_torch.models import gaussians as gm, tonemap
+    from deblurgs_tpu_torch.ops import binning, cuda_blend, cuda_blend_lockstep as cbl
+    from deblurgs_tpu_torch.ops import rasterize, tile_blend
+    from deblurgs_tpu_torch.train.losses import l1_loss
+
+    rin = {k: v.detach() for k, v in gm.render_inputs(session.params, session.gcfg).items()}
+    rcfg, cs = session.rcfg, session.scene.camera_static
+    bcfg = rcfg.blend_config(cs)
+    bg = torch.zeros(3, device=gt.device)
+    with torch.no_grad():
+        pre = rasterize._preprocess(rin["means3d"], rin["scales"], rin["rotations"],
+                                    rin["opacities"], rin["shs"], cam, cs, rcfg, 2, None,
+                                    session.aux.active, None)
+        bins = binning.bin_gaussians(pre, tiles_x=bcfg.tiles_x, tiles_y=bcfg.tiles_y,
+                                     max_pairs=rcfg.max_pairs)
+        fields = (pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth)
+        lists = (bins.pair_gauss, bins.tile_start, bins.tile_stop)
+        steps = tile_blend.walk_length(bcfg, bins.tile_start, bins.tile_stop)
+        C, D, T, n_con = tile_blend._xla_forward(bcfg, *lists, *fields, steps)
+        img = tile_blend.compose(bcfg, C, D, T, n_con, bg)[0]
+    img = img.requires_grad_(True)
+    loss = l1_loss(torch.clamp(tonemap.tone_map(img, session.tone_mapping), 0, 1), gt)
+    d_pix = tile_blend.image_to_tiles(bcfg, torch.autograd.grad(loss, img)[0])
+    d_dep = torch.zeros_like(D)
+    with torch.no_grad():
+        fwd, _ = median_ms(torch, lambda: tile_blend._xla_forward(bcfg, *lists, *fields, steps),
+                           reps=3)
+        bwd, _ = median_ms(torch, lambda: tile_blend._xla_backward(
+            bcfg, *lists, *fields, bg, T, n_con, d_pix, d_dep, steps), reps=3)
+        flat = [x for x in (pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth,
+                            pre.rect, pre.tiles_touched)]
+        staged = cuda_blend.sort_stage(bcfg, *flat, bcfg.max_pairs)
+        C5, D5, T5, _ = cbl.forward_lockstep(bcfg, staged)
+        k5 = cuda_ms(lambda: cbl.forward_lockstep(bcfg, staged), 10)
+        k6 = cuda_ms(lambda: cbl.backward_lockstep(bcfg, staged, bg, T5, d_pix, d_dep, C5, D5),
+                     10)
+    return dict(walk_steps=steps, num_pairs=int(bins.num_pairs), xla_forward_walk=round(fwd, 4),
+                xla_backward_walk=round(bwd, 4), K5=round(k5, 4), K6=round(k6, 4))
+
+
+def backends_train(torch, dev) -> dict:
+    """(b) One xla train step at the train phase's operating point
+    (1920×1080, 100k Gaussians, F = 21, tile 32, per-view renders, ``k_max``
+    the next power of two at or above the step's longest list) against the
+    pallas per-view step from the same state with the same draws."""
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+    from deblurgs_tpu_torch.ops import rasterize
+    from deblurgs_tpu_torch.train import step as step_lib
+
+    st, state0, gt, proj = train_setup(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def probe(state, bg):
+        """(longest list, most pairs) of the step's views on xla's binning
+        (a walk of one step; the views' sub-frame times are fixed)."""
+        nu = motion_lib.sample_nus(state.motion, [0], st.mcfg)
+        cams = motion_lib.subframe_cameras_batch(state.motion, [0], nu, proj, st.mcfg)
+        rin = gm.render_inputs(state.params, st.gcfg)
+        cfg = dataclasses.replace(st.rcfg, backend="xla", k_max=1)
+        outs = [rasterize.render(rin["means3d"], rin["scales"], rin["rotations"],
+                                 rin["opacities"], rin["shs"], type(cams)(*(x[v] for x in cams)),
+                                 st.cs, bg, cfg=cfg, sh_degree=2, active=state.aux.active)
+                for v in range(st.n_sub)]
+        return (max(int(o.max_per_tile) for o in outs), max(int(o.num_pairs) for o in outs))
+
+    # per-view renders: a budget of one view's pairs (+10%), not the
+    # batched render's 21 views'
+    with torch.no_grad():
+        _, pairs = probe(state0, torch.zeros(3, device=dev))
+    st_p = dataclasses.replace(st, batched_render=False, rcfg=dataclasses.replace(
+        st.rcfg, max_pairs=(int(pairs * 1.1) + 1023) & ~1023))
+    # one pallas step first, so that Adam's moments are not zero: a first
+    # Adam step moves each leaf by ±lr whatever the gradient's size
+    state, _ = step_lib.train_step(state0, gt, 0, proj, st_p, generator=gen)
+    draws = step_lib.draw_step(state, st, gt.shape, gen)
+    with torch.no_grad():
+        longest, pairs = probe(state, draws.bg)
+    if pairs > st_p.rcfg.max_pairs:
+        raise AssertionError(f"a view emits {pairs} pairs > {st_p.rcfg.max_pairs}")
+    k_max = 1 << math.ceil(math.log2(longest))
+    st_x = dataclasses.replace(st_p, rcfg=dataclasses.replace(st_p.rcfg, backend="xla",
+                                                                  k_max=k_max))
+    def step(st_):
+        """The step in its three halves, so the gradients can be compared."""
+        torch.cuda.synchronize()
+        zero_counts()
+        fwd = step_lib.forward_loss(state, gt, 0, proj, st_, draws)
+        grads = step_lib.backward(fwd)
+        new, metrics = step_lib.apply(state, fwd, grads, st_, draws)
+        torch.cuda.synchronize()
+        return new, metrics, grads, read_counts()
+
+    want, m_p, g_p, launches_p = step(st_p)
+    if any(launches_p[k] != st.n_sub for k in ("K3", "K1", "K2", "K4")):
+        raise AssertionError(f"the pallas per-view step's launches: {launches_p}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, m_x, g_x, launches_x = step(st_x)
+    step_s = [time.perf_counter() - t0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches_x.values()):
+        raise AssertionError(f"the xla step launched a compositing kernel: {launches_x}")
+    if bool(m_x.overflowed) or int(m_x.max_per_tile) != longest:
+        raise AssertionError(f"xla step: overflowed {bool(m_x.overflowed)}, longest "
+                             f"{int(m_x.max_per_tile)} (probe {longest}, k_max {k_max})")
+    loss_rel = abs(float(m_x.loss) - float(m_p.loss)) / abs(float(m_p.loss))
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"xla step loss {float(m_x.loss)} vs pallas {float(m_p.loss)}")
+    # the gradients are what the two backends compute. A second xla step
+    # from the same state and draws (timed too) measures its own float32
+    # spread (index_add_'s atomic order): each gradient is held within
+    # 2e-4 scaled of the pallas step's, or within 4× that spread where the
+    # gradient is a sum that cancels (the alignment logits nu: a softmax's
+    # derivatives sum to zero, over 21 views of 100k Gaussians' terms)
+    t0 = time.perf_counter()
+    _, _, g_x2, _ = step(st_x)
+    step_s.append(time.perf_counter() - t0)
+    names = [f"params/{k}" for k in g_p[0]._fields] + [f"motion/{k}" for k in g_p[1]._fields]
+    flat = lambda g: [*g[0], *g[1], g[2]]   # noqa: E731
+    grads, spread = {}, {}
+    for name, a, a2, b in zip(names + ["vsp"], flat(g_x), flat(g_x2), flat(g_p)):
+        spread[name] = scaled_err(a2, a)
+        grads[name] = check_scaled(f"xla step d/d{name}", a, b,
+                                   atol=max(2e-4, 4 * spread[name]))
+    # the updated leaves are reported, with their largest difference in
+    # units of the leaf's learning rate: Adam's m/sqrt(v) turns the
+    # rounding of a near-zero gradient into a move of up to lr
+    oc = st.ocfg
+    lrs = {"f_dc": oc.feature_lr, "f_rest": oc.feature_lr / 20.0, "scaling": oc.scaling_lr,
+           "rotation": oc.rotation_lr, "opacity": oc.opacity_lr}
+    moves_in_lr = {f"params/{k}": max_err(getattr(got.params, k), getattr(want.params, k)) / lr
+                   for k, lr in lrs.items()}
+    leaves = {name: scaled_err(a, b) for name, a, b in zip(
+        names + [f"aux/{k}" for k in ("xyz_grad_accum", "denom", "max_radii2d")],
+        [*got.params, *got.motion, got.aux.xyz_grad_accum, got.aux.denom, got.aux.max_radii2d],
+        [*want.params, *want.motion, want.aux.xyz_grad_accum, want.aux.denom,
+         want.aux.max_radii2d])}
+    pallas_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step_lib.train_step(state, gt, 0, proj, st_p, draws=draws)
+        torch.cuda.synchronize()
+        pallas_s.append(time.perf_counter() - t0)
+    return dict(width=st.cs.width, height=st.cs.height, gaussians=state.params.xyz.shape[0],
+                subframes=st.n_sub, tile=st.rcfg.tile_w, max_pairs_a_view=st_p.rcfg.max_pairs,
+                longest_list=longest, k_max=k_max, num_pairs=int(m_x.num_pairs),
+                loss={"xla": float(m_x.loss), "pallas": float(m_p.loss)},
+                loss_rel_diff=loss_rel, grad_scaled_max_diff=grads,
+                xla_rerun_grad_scaled_spread=spread,
+                leaf_scaled_max_diff=leaves, leaf_max_abs_diff_in_lr=moves_in_lr,
+                xla_step_s=[round(x, 3) for x in step_s],
+                pallas_per_view_step_s=[round(x, 4) for x in pallas_s],
+                launches_pallas_step=launches_p, peak_memory_gb=round(peak_gb, 3))
+
+
+def backends_oracle(torch, dev) -> dict:
+    """(c) The oracle as the anchor on the card: 128×96, 2,000 Gaussians,
+    one view's preprocess outputs composited by the oracle, the xla walk,
+    pallas/mixed (K3, K1; backward K2, K4) and pallas/lockstep (K3, K5;
+    K6, K4); images within atol 1e-5 / rtol 1e-4 and the gradients of
+    means, conics, opacities and colours within 2e-5 scaled of the
+    oracle's autograd (``tests/test_rasterizer.py``'s tolerances)."""
+    from deblurgs_tpu_torch.ops import binning, oracle, rasterize, tile_blend
+    from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
+
+    W, H, N = ORACLE_SIZE
+    model = make_scene(N, 2, np.random.default_rng(SEED + 30), dev)
+    with torch.no_grad():
+        model.scaling.add_(math.log(4.0))        # wider splats: lists of tens of pairs
+    cs, proj = camera(W, H, 1.2, dev)
+    cam = view_camera(torch, np.eye(3), np.array([0.0, 0.0, -6.0]), proj)
+    cam = type(cam)(*(x[0] for x in cam))
+    rcfg = RasterizeConfig(max_pairs=1 << 17, k_max=4096)
+    rin = model.render_inputs()
+    with torch.no_grad():
+        pre = rasterize._preprocess(rin["means3d"], rin["scales"], rin["rotations"],
+                                    rin["opacities"], rin["shs"], cam, cs, rcfg, 2, None,
+                                    None, None)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    w_img = torch.randn((H, W, 3), generator=gen, device=dev)
+    w_dep = 0.01 * torch.randn((H, W), generator=gen, device=dev)
+    bcfg = rcfg.blend_config(cs)
+    bins = binning.bin_gaussians(pre, tiles_x=bcfg.tiles_x, tiles_y=bcfg.tiles_y,
+                                 max_pairs=rcfg.max_pairs)
+
+    def run(kind):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (pre.means2d, pre.conic, pre.opacity, pre.color)]
+        if kind == "oracle":
+            img, dep, _, _ = oracle.oracle_render(
+                pre._replace(means2d=leaves[0], conic=leaves[1], opacity=leaves[2],
+                             color=leaves[3]), bg, width=W, height=H, z_far=rcfg.z_far)
+        elif kind == "xla":
+            img, dep, _, _ = tile_blend.blend_from_binning(
+                dataclasses.replace(bcfg, backend="xla"), bins, *leaves, pre.depth, bg)
+        else:
+            img, dep = tile_blend.blend_fused(
+                dataclasses.replace(bcfg, layout=kind), *leaves, pre.depth, pre.rect,
+                pre.tiles_touched, bg)[:2]
+        grads = torch.autograd.grad(torch.sum(img * w_img) + torch.sum(dep * w_dep), leaves)
+        return img.detach(), grads
+
+    t0 = time.perf_counter()
+    want, want_g = run("oracle")
+    torch.cuda.synchronize()
+    seconds = {"oracle": time.perf_counter() - t0}
+    zero_counts()
+    errs = {}
+    for kind in ("xla", "mixed", "lockstep"):
+        t0 = time.perf_counter()
+        img, grads = run(kind)
+        torch.cuda.synchronize()
+        seconds[kind] = time.perf_counter() - t0
+        errs[kind] = {"image": check_close(f"oracle: {kind} image", img, want, atol=1e-5,
+                                           rtol=1e-4)}
+        for name, g, w in zip(("means2d", "conic", "opacity", "color"), grads, want_g):
+            if not float(torch.max(torch.abs(w))) > 0:
+                raise AssertionError(f"oracle: the oracle's {name} gradient is zero")
+            errs[kind][name] = check_scaled(f"oracle: {kind} d/d{name}", g, w)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"oracle: {name} was not launched: {launches}")
+    return dict(width=W, height=H, gaussians=N, visible=int(pre.visible.sum()),
+                num_pairs=int(bins.num_pairs), longest_list=int(bins.max_per_tile),
+                forward_backward_s={k: round(v, 4) for k, v in seconds.items()}, errors=errs,
+                launches=launches)
+
+
+def backends_native(torch, dev, run) -> dict:
+    """(d) The native host library on the card's host: its build, exact
+    3-NN of the train phase's 100k points against the on-card exact
+    search, and ``points3D.bin`` of the eval run's 100k points parsed bit
+    for bit as the Python reader does."""
+    from deblurgs_tpu_torch import native
+    from deblurgs_tpu_torch.core.sh import sh_to_rgb
+    from deblurgs_tpu_torch.data import colmap
+    from deblurgs_tpu_torch.ops.knn import knn3_mean_sq_dist
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library did not build or load")
+    load_s = time.perf_counter() - t0
+    N = TRAIN_SIZE[2]
+    pts = (np.random.default_rng(SEED + 3).standard_normal((N, 3)) * 2.0).astype(np.float32)
+    t0 = time.perf_counter()
+    host = native.knn3_mean_sq(pts)
+    host_s = time.perf_counter() - t0
+    dpts = torch.as_tensor(pts, device=dev)
+    card_ms, card_all = median_ms(torch, lambda: knn3_mean_sq_dist(dpts), reps=3)
+    card = knn3_mean_sq_dist(dpts).cpu().numpy()
+    rel = float(np.max(np.abs(host.astype(np.float64) - card) / np.abs(card)))
+    if not rel <= 1e-5:
+        raise AssertionError(f"native 3-NN against the card's: max relative diff {rel:.3e}")
+
+    model = make_scene(EVAL_SIZE[2], 2, np.random.default_rng(SEED), dev)
+    rgb = (np.clip(sh_to_rgb(model.f_dc.detach()[:, 0]).cpu().numpy(), 0, 1) * 255).round()
+    path = os.path.join(run["source"], "sparse", "0", "points3D.bin")
+    write_points3d_bin(path, model.xyz.detach().cpu().numpy().astype(np.float64),
+                       rgb.astype(np.uint8), np.random.default_rng(SEED + 32))
+    t0 = time.perf_counter()
+    parsed = native.parse_points3d_bin(path)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = colmap.read_points3d_binary_python(path)
+    py_s = time.perf_counter() - t0
+    if parsed is None or not all(a.dtype == b.dtype and np.array_equal(a, b)
+                                 for a, b in zip(parsed, py)):
+        raise AssertionError("parse_points3d_bin differs from the Python reader")
+    return dict(library=os.path.relpath(native.load()._name, REPO),
+                first_load_s=None if native.build_seconds is None
+                else round(native.build_seconds, 3),
+                load_s_here=round(load_s, 3), knn_points=N, knn_host_s=round(host_s, 4),
+                knn_card_exact_ms=round(card_ms, 4), knn_card_exact_ms_all=card_all,
+                knn_max_rel_diff=rel, points3d=len(parsed[0]),
+                parse_native_s=round(parse_s, 4), parse_python_s=round(py_s, 4))
+
+
+def phase_backends(torch, dev):
+    """The backends phase: (a)-(d) above, each line printed as it ends."""
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        run = write_eval_run(torch, dev, root)
+        emit("backends_eval", width=EVAL_SIZE[0], height=EVAL_SIZE[1], gaussians=EVAL_SIZE[2],
+             tile=16, write_run_s=round(time.perf_counter() - t0, 3),
+             **backends_eval(torch, dev, run))
+        emit("backends_native", **backends_native(torch, dev, run))
+    torch.cuda.empty_cache()
+    emit("backends_oracle", **backends_oracle(torch, dev))
+    torch.cuda.empty_cache()
+    emit("backends_train", **backends_train(torch, dev))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deblurgs_tpu_torch")):
         fail("the deblurgs_tpu_torch package is not beside this script")
@@ -2397,7 +2861,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
 
-    dev, _ = phase_env(torch)
+    dev, card = phase_env(torch)
     phase_build()
     with torch.no_grad():
         parity, k3_parity = phase_parity(torch, dev)
@@ -2422,11 +2886,13 @@ def main() -> int:
     del sl, tr, ev           # the training run below needs the card's memory
     torch.cuda.empty_cache()
     cli_errs = phase_train_cli(torch, dev, train_step_ms)
+    torch.cuda.empty_cache()
+    phase_backends(torch, dev)
     for entry in kernels:
         key = entry["name"].split()[0]
         if key in cli_errs:
             entry["max_abs_err"] = max(entry["max_abs_err"], cli_errs[key])
-    emit("done", seconds=round(time.perf_counter() - t_start, 3))
+    emit("done", seconds=round(time.perf_counter() - t_start, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

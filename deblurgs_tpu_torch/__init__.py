@@ -20,6 +20,12 @@ hot spots:
 - ``train/step.py``: the train step (counterpart of
   ``deblurgs_tpu/train/step.py``), gradients by autograd around K2 and K4.
 
+The xla backend (``ops/tile_blend.py::blend``, a lockstep walk over pair
+slots with a hand-written backward) and the oracle (``ops/oracle.py``)
+render the same function in plain PyTorch, as JAX runs them outside any
+Pallas kernel. ``native/`` is the host library (3-NN, COLMAP parsing;
+g++ at first use) and ``tools/`` drives COLMAP.
+
 Kernels are compiled with ``nvcc`` from ``csrc/`` into ``build/`` on first
 use; importing this package needs neither CUDA nor a compiler. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"`` (or CPU tensors),

@@ -79,7 +79,7 @@ class ModelParams(ParamGroup):
         self.use_isotrophic = False
         self.curve_random_sample = False
 
-        self.backend = "pallas"       # only "pallas" is ported
+        self.backend = "pallas"       # "pallas" | "xla" | "oracle"
         self.max_pairs = 0            # pair-list capacity; 0 = sized at train
                                       # start (Trainer.autosize_max_pairs)
         self.tile = 32

@@ -14,9 +14,11 @@ Load the trained session → score the held-out views at their raw poses
 "jet" colour map). The ground truth loads at ``-r`` (default -1: images
 wider than 1,600 px are downscaled), the session's renders at the run's
 ``cfg_args`` resolution unless ``-r`` is given, as in the JAX package. A
-run without a held-out split needs COLMAP registration of its test images
-(``tools/colmap_pipeline.py::initialize_test_pose``), which is not ported
-yet: it raises NotImplementedError.
+run without a held-out split registers ``<source>/test_images`` with
+COLMAP against sharp renders of the training views
+(``tools/colmap_pipeline.py::initialize_test_pose``); where that cannot
+be done (no ``colmap`` binary, no test images, nothing registered) it
+prints why and returns None, as JAX's does.
 """
 
 from __future__ import annotations
@@ -82,10 +84,17 @@ def main(argv=None):
     dev = session.device
     test_infos = session.scene.info.test_cameras
     if not test_infos:
-        raise NotImplementedError(
-            f"{args.model_path}: the run has no held-out split, and registering "
-            "test_images/ with COLMAP (tools/colmap_pipeline.py::initialize_test_pose) "
-            "is not ported yet")
+        # no held-out split: try COLMAP registration of test_images/
+        from deblurgs_tpu_torch.tools.colmap_pipeline import initialize_test_pose
+
+        try:
+            test_infos = initialize_test_pose(session, args.model_path, args.source_path)
+        except RuntimeError as e:
+            print(f"cannot register test poses: {e}")
+            test_infos = []
+        if not test_infos:
+            print("no test cameras available — nothing to evaluate")
+            return None
 
     gts = torch.as_tensor(np.stack([
         load_image(c, args.resolution if args.resolution is not None else -1)

@@ -7,8 +7,9 @@
 //
 //     out[f, s] = ctable[gauss_c[s], f]      f < 16, s < max_pairs
 //
-// and a rank outside [0, n_rows) writes NaN instead of reading out of
-// bounds. The function moves bytes and does no arithmetic: it is bound by
+// and a rank outside [0, n_rows) writes 0 instead of reading out of
+// bounds, as JAX's one-hot matmul over zero-padded rows gives
+// (pallas_blend.py:187-196). The function moves bytes and does no arithmetic: it is bound by
 // the 64 B it writes a slot (plus 4 B of gauss_c and the [P, 16] table read
 // once). Values are copied bit for bit, so the result equals
 // ctable[gauss_c].T exactly.
@@ -22,8 +23,6 @@
 // row. gauss_c and the table are read once, not once a field. Where
 // max_pairs is not a multiple of four the rows are not 16 B aligned, and
 // the same threads load and store scalars.
-
-#include <math_constants.h>
 
 #include "common.cuh"
 
@@ -54,7 +53,7 @@ __global__ void __launch_bounds__(THREADS) broadcast_fields_kernel(
 #pragma unroll
   for (int j = 0; j < SPT; ++j) ok[j] = row[j] >= 0 && row[j] < n_rows;
 
-  const float4 nan4 = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   float* dst = out + s0;
 #pragma unroll
   for (int q = 0; q < NFIELD / 4; ++q) {
@@ -64,7 +63,7 @@ __global__ void __launch_bounds__(THREADS) broadcast_fields_kernel(
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
       if (!ok[j])
-        v[j] = nan4;
+        v[j] = zero4;
       else if (j > 0 && ok[j - 1] && row[j] == row[j - 1])
         v[j] = v[j - 1];
       else

@@ -4,10 +4,9 @@ Counterpart of ``deblurgs_tpu/data/colmap.py`` (reference
 ``scene/colmap_loader.py:43-294``): ``cameras`` / ``images`` / ``points3D``
 in both ``.bin`` and ``.txt`` layouts, the text writers and
 ``detect_sparse_dir``. Binary parsing decodes one buffer read
-incrementally. The JAX package's ``read_points3d_binary`` first tries its
-native single-pass parser (``deblurgs_tpu/native``); that parser is not
-ported yet, so the port always takes the per-record Python loop, which
-gives the same arrays.
+incrementally. ``read_points3d_binary`` first tries the native
+single-pass parser (``deblurgs_tpu_torch/native``), then the per-record
+Python loop, which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -171,8 +170,17 @@ def read_images_text(path) -> dict:
 
 
 def read_points3d_binary(path):
-    """-> (xyz [N,3] f64, rgb [N,3] u8, error [N,1] f64), one record at a
-    time (the reference's loop)."""
+    """-> (xyz [N,3] f64, rgb [N,3] u8, error [N,1] f64): the native
+    parser when the host library builds, else one record at a time (the
+    reference's loop)."""
+    from deblurgs_tpu_torch import native
+
+    out = native.parse_points3d_bin(path)
+    return out if out is not None else read_points3d_binary_python(path)
+
+
+def read_points3d_binary_python(path):
+    """:func:`read_points3d_binary` by the per-record Python loop."""
     buf = _Buf(_read_bytes(path))
     (num,) = buf.unpack("Q")
     xyz = np.empty((num, 3))

@@ -5,12 +5,12 @@ path of ``Scene.__init__`` with ``load_iteration=-1`` and
 ``camera_motion_module.load``, ``motion.py:351-365``), driven by the run's
 persisted ``cfg_args``. A key missing from ``cfg_args`` takes JAX's
 default: ``kernel_layout`` "lockstep", ``tile`` 16, ``window`` 1,
-``backend`` "xla" (not ported yet: rendering such a session raises until
-``--backend pallas`` overrides it), and ``max_pairs`` ≤ 0 or missing means
-``1 << 19`` to start with. A view that emits more pairs than the budget
-holds grows it and renders again (:func:`render_fitted`), where JAX's
-session composites a truncated list. The session's tensors live on its
-device; the scene stays on the host.
+``backend`` "xla", and ``max_pairs`` ≤ 0 or missing means ``1 << 19`` to
+start with. A view that emits more pairs than the budget holds grows it
+and renders again (:func:`render_fitted`), and so does a view on xla
+whose longest tile list passes ``k_max``, where JAX's session composites
+a truncated list. The session's tensors live on its device; the scene
+stays on the host.
 """
 
 from __future__ import annotations
@@ -105,21 +105,27 @@ def load_session(model_path: str, source_path: str | None = None,
 
 
 def render_fitted(session: TrainedSession, rin: dict, cam: CameraArrays, bg: torch.Tensor):
-    """``render`` of one view at the session's pair budget. A view that
-    emits more pairs than the budget holds would composite a truncated list;
-    instead the budget grows to the next power of two above 1.5× the pairs
-    emitted, for this view and every later one, and the view renders again."""
+    """``render`` of one view at the session's budgets. A view that emits
+    more pairs than ``max_pairs`` holds, or on xla has a tile list longer
+    than ``k_max``, would composite a truncated list; instead the budget
+    grows, for this view and every later one, and the view renders again:
+    ``max_pairs`` to the next power of two above 1.5× the pairs emitted,
+    ``k_max`` to the next power of two that holds the longest list."""
     args = (rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"], rin["shs"], cam,
             session.scene.camera_static, bg)
     kw = dict(sh_degree=session.gcfg.sh_degree, active=session.aux.active)
     out = render(*args, cfg=session.rcfg, **kw)
-    n = int(out.num_pairs)
-    if n <= session.rcfg.max_pairs:
+    n, longest = int(out.num_pairs), int(out.max_per_tile)
+    rcfg = session.rcfg
+    if n > rcfg.max_pairs:
+        rcfg = dataclasses.replace(rcfg, max_pairs=1 << math.ceil(math.log2(1.5 * n)))
+        print(f"[pairs] a view emits {n} pairs: the session's max_pairs → {rcfg.max_pairs}")
+    if rcfg.backend == "xla" and longest > rcfg.k_max:
+        rcfg = dataclasses.replace(rcfg, k_max=1 << math.ceil(math.log2(longest)))
+        print(f"[pairs] a tile lists {longest} pairs: the session's k_max → {rcfg.k_max}")
+    if rcfg == session.rcfg:
         return out
-    session.rcfg = dataclasses.replace(session.rcfg,
-                                       max_pairs=1 << math.ceil(math.log2(1.5 * n)))
-    print(f"[pairs] a view emits {n} pairs: the session's max_pairs → "
-          f"{session.rcfg.max_pairs}")
+    session.rcfg = rcfg
     return render(*args, cfg=session.rcfg, **kw)
 
 

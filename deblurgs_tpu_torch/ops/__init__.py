@@ -1,7 +1,8 @@
 """Rasterizer ops (counterpart of ``deblurgs_tpu/ops``).
 
 1. ``preprocess``       — per-Gaussian cull/project/conic/SH.
-2. ``binning``          — compact pair expansion and range search.
+2. ``binning``          — pair expansion (compact and original id
+                          space), ``bin_gaussians``, range search.
 3. ``cuda_blend``       — staging: segmented broadcast (kernel K3), exact
                           tile cull, stable (tile, depth) sort; the
                           gradient reduce by compact rank (kernel K4).
@@ -12,8 +13,13 @@
                           view's tiles, with their own launch counts).
 6. ``tile_blend``       — BlendConfig, tiling, ``blend_fused`` (an
                           autograd Function: K3 and K1 or K5 forward; K2 or
-                          K6, then K4, backward).
-7. ``rasterize``        — the public ``render`` / ``render_batch``.
-8. ``knn``              — 3-NN mean squared distance (scene initialisation).
-9. ``kernels``          — builds and loads ``csrc/*.cu`` on first use.
+                          K6, then K4, backward) and ``blend``, the xla
+                          backend's lockstep walk with its hand-written
+                          backward (plain PyTorch).
+7. ``oracle``           — the dense per-pixel compositor (the anchor).
+8. ``rasterize``        — the public ``render`` (pallas, xla, oracle) /
+                          ``render_batch`` (pallas, mixed).
+9. ``knn``              — 3-NN mean squared distance (scene initialisation):
+                          exact, or the Morton-window search.
+10. ``kernels``         — builds and loads ``csrc/*.cu`` on first use.
 """

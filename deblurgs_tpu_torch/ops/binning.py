@@ -1,8 +1,10 @@
-"""Pair expansion in compact (emitting-Gaussian) id space, and range search.
+"""Tile binning: pair expansion, depth sort, per-tile ranges.
 
-Counterpart of ``deblurgs_tpu/ops/binning.py`` (``expand_compact`` and
-``searchsorted_right``). The JAX package recovers each slot's owner with a
-unique scatter at every run start followed by a running maximum
+Counterpart of ``deblurgs_tpu/ops/binning.py``: ``expand_slots`` and
+``bin_gaussians`` (the xla backend's binning), ``expand_compact`` (the
+kernel path's staging) and ``searchsorted_right``. The JAX package
+recovers each slot's owner with a unique scatter at every run start
+followed by a running maximum
 (``lax.cummax``); both of its maps are monotone step functions, so here
 each is one binary search (``torch.searchsorted``) over a cumulative sum.
 That is the cheap form on the card: ``torch.cummax`` over the slot axis
@@ -23,7 +25,86 @@ Parity with the JAX package, slot for slot:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class Binning(NamedTuple):
+    pair_gauss: torch.Tensor    # [max_pairs] Gaussian index (sorted); P for invalid
+    pair_tile: torch.Tensor     # [max_pairs] tile id (sorted); num_tiles for invalid
+    tile_start: torch.Tensor    # [num_tiles] first slot of each tile
+    tile_stop: torch.Tensor     # [num_tiles] one past its last slot
+    num_pairs: torch.Tensor     # [] pairs emitted (pre-capacity-clip)
+    max_per_tile: torch.Tensor  # [] longest tile list (k_max adequacy)
+
+
+def expand_slots(area: torch.Tensor, max_pairs: int):
+    """Slot → owning-Gaussian map in ORIGINAL id space.
+
+    Returns (gauss [max_pairs] in [0, P-1], valid [max_pairs] bool, local
+    [max_pairs] offset within the owner's rect, total [] emitted count). A
+    slot past the total belongs to the last emitting Gaussian (0 when none
+    emits), as JAX's running maximum carries it.
+    """
+    P = area.shape[0]
+    dev = area.device
+    area = area.to(torch.int64)
+    offsets_incl = torch.cumsum(area, 0)
+    total = offsets_incl[-1] if P > 0 else torch.zeros((), dtype=torch.int64, device=dev)
+    starts = offsets_incl - area
+    slots = torch.arange(max_pairs, dtype=torch.int64, device=dev)
+    # the owner of slot s < total is the first Gaussian whose run ends past
+    # s; later slots ask for the last emitted slot's owner
+    last = torch.clamp(total - 1, min=0)
+    owner = torch.searchsorted(offsets_incl, torch.minimum(slots, last), right=True)
+    gauss = torch.clamp(owner, 0, max(P - 1, 0))
+    gauss = torch.where(total > 0, gauss, 0)
+    valid = slots < torch.clamp(total, max=max_pairs)
+    local = slots - starts[gauss] if P > 0 else slots
+    return gauss, valid, local, total
+
+
+def depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
+    """f32 → int64 in [0, 2^32) with the same order (-0.0 and +0.0 equal)."""
+    bits = (depth + 0.0).view(torch.int32).to(torch.int64)
+    return torch.where(bits < 0, -bits - 1, bits + (1 << 31))
+
+
+def bin_gaussians(pre, *, tiles_x: int, tiles_y: int, max_pairs: int) -> Binning:
+    """Expand (Gaussian × touched-tile) pairs and sort them by (tile, depth).
+
+    Within a Gaussian the emitted order is row-major over its rect, and the
+    sort is one stable ``torch.sort`` on a packed key (tile id in the high
+    32 bits, the depth's order-preserving bits in the low 32), so equal
+    depths keep slot order as in JAX's stable ``lax.sort``.
+    """
+    num_tiles = tiles_x * tiles_y
+    P = pre.depth.shape[0]
+    gauss, valid, local, total = expand_slots(pre.tiles_touched, max_pairs)
+    # rect coords as exact f32 VALUES (< 2^24), never bitcast: small-int bit
+    # patterns are f32 denormals, which flush-to-zero hardware zeroes
+    f32 = torch.float32
+    x0f = pre.rect[:, 0].to(f32)[gauss]
+    y0f = pre.rect[:, 1].to(f32)[gauss]
+    wf = torch.clamp(pre.rect[:, 2] - pre.rect[:, 0], min=1).to(f32)[gauss]
+    # f32 arithmetic is exact here: local < rect area ≤ num_tiles < 2^24
+    localf = local.to(f32)
+    dy = torch.floor(localf / wf)
+    dx = localf - dy * wf
+    tile = ((y0f + dy) * tiles_x + (x0f + dx)).to(torch.int64)
+    tile = torch.where(valid, tile, num_tiles)
+    depth_key = torch.where(valid, pre.depth[gauss], torch.inf)
+    gid = torch.where(valid, gauss, P)
+
+    order = torch.sort((tile << 32) | depth_order_bits(depth_key), stable=True).indices
+    sorted_tile = tile[order]
+    tq = torch.arange(num_tiles, dtype=torch.int64, device=tile.device)
+    tile_start = searchsorted_right(sorted_tile, tq - 1)
+    tile_stop = searchsorted_right(sorted_tile, tq)
+    return Binning(pair_gauss=gid[order], pair_tile=sorted_tile, tile_start=tile_start,
+                   tile_stop=tile_stop, num_pairs=total,
+                   max_per_tile=torch.max(tile_stop - tile_start))
 
 
 def expand_compact(area: torch.Tensor, max_pairs: int):

@@ -57,21 +57,22 @@ _DEPTH_SENTINEL = 3e37
 
 def broadcast_fields_ref(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: ``ctable[gauss_c].T`` as a contiguous
-    [16, max_pairs] tensor, with NaN in the column of a rank outside
-    [0, n_rows), as the kernel writes."""
+    [16, max_pairs] tensor, with 0 in the column of a rank outside
+    [0, n_rows), as the kernel writes and as JAX's one-hot matmul over
+    zero-padded rows gives."""
     rank = gauss_c.long()
     n_rows = ctable.shape[0]
     if n_rows == 0:
-        return ctable.new_full((ctable.shape[1], rank.shape[0]), float("nan"))
+        return ctable.new_zeros((ctable.shape[1], rank.shape[0]))
     ok = (rank >= 0) & (rank < n_rows)
     rows = ctable[torch.where(ok, rank, 0)]
-    return torch.where(ok[:, None], rows, float("nan")).T.contiguous()
+    return torch.where(ok[:, None], rows, 0.0).T.contiguous()
 
 
 def broadcast_fields(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tensor:
     """[P, 16] compact table + [max_pairs] non-decreasing compact ranks →
     [16, max_pairs] slot-space field rows, ``out[:, s] = ctable[gauss_c[s]]``
-    (NaN where a rank is outside [0, P)).
+    (0 where a rank is outside [0, P)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/broadcast_fields.cu``) or raise.
@@ -175,12 +176,6 @@ def tile_culled(cfg) -> bool:
     return cfg.tile_cull and not cfg.need_n_contrib
 
 
-def _depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
-    """f32 → int64 in [0, 2^32) with the same order (-0.0 and +0.0 equal)."""
-    bits = (depth + 0.0).view(torch.int32).to(torch.int64)
-    return torch.where(bits < 0, -bits - 1, bits + (1 << 31))
-
-
 class Compact(NamedTuple):
     """The compact per-Gaussian table and the slot → owner expansion."""
 
@@ -269,7 +264,7 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     depth_key = torch.where(valid, fslot[9], torch.full_like(fslot[9], _DEPTH_SENTINEL))
     gc_sent = torch.where(valid, gauss_c, P)
 
-    order = torch.sort((tile << 32) | _depth_order_bits(depth_key), stable=True).indices
+    order = torch.sort((tile << 32) | binning_lib.depth_order_bits(depth_key), stable=True).indices
     inv = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     inv[order] = torch.arange(max_pairs, dtype=torch.int32, device=dev)
     s_tile = tile[order]

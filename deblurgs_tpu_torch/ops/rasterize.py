@@ -2,16 +2,25 @@
 
 Counterpart of ``deblurgs_tpu/ops/rasterize.py``:
 
-  preprocess → staging (K3 + stable sort) → compositing → image/depth
+  preprocess → binning → compositing → image/depth
 
-Only the kernel path is ported: ``backend="pallas"``, with
-``layout="mixed"`` (K1/K2; the JAX package's training default, and the
-default here) or ``layout="lockstep"`` (K5/K6; one view, the layout of
-held-out evaluation). ``backend="xla"`` and ``backend="oracle"`` raise
-NotImplementedError until they are ported; ``render_batch`` requires
-``layout="mixed"``, as in JAX. ``window`` and ``chunk`` are validated as in
-JAX and have no effect; ``fast`` and ``need_n_contrib`` change outputs as
-they do there.
+``render`` takes the three backends of the JAX package:
+
+- ``"pallas"``, the kernel path: staging (K3 + stable sort) and
+  compositing with ``layout="mixed"`` (K1/K2) or ``layout="lockstep"``
+  (K5/K6; one view, the layout of held-out evaluation);
+- ``"xla"``: ``bin_gaussians`` and the lockstep walk of
+  ``tile_blend.blend``, at most ``k_max`` pairs a tile;
+- ``"oracle"``: the dense per-pixel compositor, the correctness anchor.
+
+The defaults stay ``backend="pallas"`` and ``layout="mixed"`` (JAX's are
+"xla" and "lockstep"): the kernel path is what the port is for, and
+``RasterizeConfig()`` there would be a walk tens of times slower on the
+card. A run's ``cfg_args`` without those keys still means JAX's values
+(``eval/session.py``). ``render_batch`` requires pallas and the mixed
+layout, as in JAX. ``window`` and ``chunk`` are validated as in JAX and
+have no effect; ``fast`` and ``need_n_contrib`` change outputs as they do
+there.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ import torch
 from deblurgs_tpu_torch.core.camera import CameraArrays, CameraStatic
 from deblurgs_tpu_torch.core.transforms import build_covariance
 from deblurgs_tpu_torch.device import full_f32
+from deblurgs_tpu_torch.ops import binning as binning_lib
+from deblurgs_tpu_torch.ops import oracle as oracle_lib
 from deblurgs_tpu_torch.ops import preprocess as pre_lib
 from deblurgs_tpu_torch.ops import tile_blend
 
@@ -35,7 +46,7 @@ class RasterizeConfig:
     tile_w: int = 16
     tile_h: int = 16
     max_pairs: int = 1 << 18
-    k_max: int = 1024           # backend="xla" only: no effect yet
+    k_max: int = 1024           # backend="xla": pairs composited a tile (cap)
     backend: str = "pallas"     # "pallas" (kernel path) | "xla" | "oracle"
     cull_z: float = 0.2         # near-cull (auxiliary.h:159)
     z_far: float = 100.0        # depth background (forward.cu:390)
@@ -83,12 +94,6 @@ class RenderOutput(NamedTuple):
     max_per_tile: torch.Tensor  # [] longest tile list
 
 
-def _check_ported(cfg: RasterizeConfig) -> None:
-    if cfg.backend != "pallas":
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet; use backend='pallas'")
-
-
 def _preprocess(means3d, scales, rotations, opacities, shs, cam, cs, cfg,
                 sh_degree, colors_precomp, active, vsp):
     if means3d.is_cuda:
@@ -124,13 +129,26 @@ def render(
     bool mask of live slots; vsp optional [P, 2] zeros added to the NDC
     means. The tensors' device decides where it runs.
     """
-    _check_ported(cfg)
     pre = _preprocess(means3d, scales, rotations, opacities, shs, cam, cs, cfg,
                       sh_degree, colors_precomp, active, vsp)
-    (image, depth_img, final_T, n_contrib,
-     num_pairs, max_per_tile) = tile_blend.blend_fused(
-        cfg.blend_config(cs), pre.means2d, pre.conic, pre.opacity, pre.color,
-        pre.depth, pre.rect, pre.tiles_touched, bg)
+    if cfg.backend == "oracle":
+        image, depth_img, final_T, n_contrib = oracle_lib.oracle_render(
+            pre, bg, width=cs.width, height=cs.height, tile_w=cfg.tile_w,
+            tile_h=cfg.tile_h, z_far=cfg.z_far)
+        num_pairs = torch.sum(pre.tiles_touched.to(torch.int64))
+        max_per_tile = torch.zeros((), dtype=torch.int64, device=num_pairs.device)
+    elif cfg.backend == "pallas":
+        (image, depth_img, final_T, n_contrib,
+         num_pairs, max_per_tile) = tile_blend.blend_fused(
+            cfg.blend_config(cs), pre.means2d, pre.conic, pre.opacity, pre.color,
+            pre.depth, pre.rect, pre.tiles_touched, bg)
+    else:
+        bcfg = cfg.blend_config(cs)
+        bins = binning_lib.bin_gaussians(pre, tiles_x=bcfg.tiles_x, tiles_y=bcfg.tiles_y,
+                                         max_pairs=cfg.max_pairs)
+        image, depth_img, final_T, n_contrib = tile_blend.blend_from_binning(
+            bcfg, bins, pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth, bg)
+        num_pairs, max_per_tile = bins.num_pairs, bins.max_per_tile
     return RenderOutput(
         image=image, depth=depth_img, final_T=final_T, n_contrib=n_contrib,
         radii=pre.radius, visible=pre.visible,

@@ -15,7 +15,8 @@ decides everything between steps:
   doubles and every per-Gaussian leaf is padded (:func:`grow_capacity`);
   when the pair count passes 85% of ``max_pairs``, the pair budget
   doubles; ``max_pairs == 0`` sizes it once at the start
-  (:meth:`Trainer.autosize_max_pairs`);
+  (:meth:`Trainer.autosize_max_pairs`); on the xla backend ``k_max``
+  doubles when a tile's list outgrows it;
 - the saving cadence (PLY snapshots, ``cm.npz``, full checkpoints), the
   EMA-smoothed log, the visualizer and ``time.txt``.
 
@@ -132,18 +133,18 @@ class Trainer:
     draws_fn: Optional[Callable] = None   # (iteration, state) -> StepDraws
 
     def __post_init__(self):
-        if self.rcfg.backend != "pallas":
-            raise NotImplementedError(
-                f"backend={self.rcfg.backend!r} is not ported yet; use backend='pallas'")
         if (torch.distributed.is_available() and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
             raise NotImplementedError(
                 "multi-host training (parallel/multihost.py of the JAX package) is not "
                 "ported yet")
-        if self.batched_render and self.rcfg.layout != "mixed":
+        if self.batched_render and not (self.rcfg.backend == "pallas"
+                                        and self.rcfg.layout == "mixed"):
             # batched rendering stacks all views on the mixed kernel's tile
-            # axis; the lockstep layout renders one view at a time
-            print(f"[render] layout={self.rcfg.layout!r} has no batched path — "
+            # axis; the xla/oracle backends (and the lockstep layout) have
+            # no batched path
+            print(f"[render] backend={self.rcfg.backend!r} "
+                  f"layout={self.rcfg.layout!r} has no batched path — "
                   "falling back to per-view rendering")
             self.batched_render = False
         self.device = resolve_device(self.device)
@@ -363,6 +364,9 @@ class Trainer:
             if num_pairs > 0.85 * rcfg.max_pairs:
                 rcfg = dataclasses.replace(rcfg, max_pairs=rcfg.max_pairs * 2)
                 print(f"[pairs] max_pairs → {rcfg.max_pairs}")
+            if rcfg.backend == "xla" and int(vals["max_per_tile"]) > rcfg.k_max:
+                rcfg = dataclasses.replace(rcfg, k_max=rcfg.k_max * 2)
+                print(f"[pairs] k_max → {rcfg.k_max}")
             self.logger.update({"l1": vals["l1"], "smooth": vals["t_smooth"],
                                 "hinge": vals["hinge"], "psnr": vals["psnr"],
                                 "#pts": num_active})

@@ -1,7 +1,8 @@
 """The DeblurGS train step (reference ``train.py:104-208`` hot loop).
 
 Counterpart of ``deblurgs_tpu/train/step.py``. One call renders all
-sub-frames of the step's blurry observations (one batched render: K3, K1),
+sub-frames of the step's blurry observations (one batched render: K3, K1;
+on the xla and oracle backends one render a view),
 synthesises the blur as their mean, computes the loss (L1 + temporal
 smoothness + depth-TV + opacity hinge), backpropagates through the
 rasterizer (K2, K4) and the Bézier camera curves by autograd, clips,
@@ -68,7 +69,8 @@ class TrainStatics:
     random_sample: bool = False
     white_background: bool = False  # extra opacity reset at densify_from_iter
     mesh: object = None        # sub-frame sharding: not ported, must be None
-    batched_render: bool = False  # ONE render_batch for all views (else a loop)
+    batched_render: bool = False  # ONE render_batch for all views (pallas
+                                  # only; else, and on xla/oracle, a loop)
     cams_per_step: int = 1     # B training cameras per step
 
 
@@ -207,7 +209,7 @@ def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch
         nu = motion_lib.sample_nus(motion, cam_idx, mcfg,
                                    draws.nu_u if st.random_sample else None)
     cams = motion_lib.subframe_cameras_batch(motion, cam_idx, nu, proj, mcfg)
-    if st.batched_render:
+    if st.batched_render and st.rcfg.backend == "pallas":
         out = render_batch(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
                            rin["shs"], cams, st.cs, bg, cfg=st.rcfg, sh_degree=st.sh_degree,
                            active=active, vsp=vsp)
@@ -321,8 +323,11 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
     new_motion, adam_m = optim.update(state.motion, g_motion, state.adam_m, lr_m,
                                       update_mask=mask_m)
 
-    # --- in-step overflow detection (pair capacity)
+    # --- in-step overflow detection (pair capacity; on xla also the walk's
+    # k_max, past which a tile's list is truncated)
     overflowed = torch.max(fwd.num_pairs) > st.rcfg.max_pairs
+    if st.rcfg.backend == "xla":
+        overflowed = overflowed | (torch.max(fwd.max_per_tile) > st.rcfg.k_max)
     overflow_count = state.overflow_count + overflowed.to(torch.int32)
     l1, t_smooth, hinge, depth_tv = (x.detach() for x in fwd.parts)
     metrics = StepMetrics(

@@ -117,7 +117,7 @@ def test_depth_order_key():
     """The packed sort key orders f32 depths like the floats themselves,
     with the 3e37 sentinel last."""
     d = torch.tensor([3e37, 0.5, 1e-30, 7.0, 0.0, 2.5, 1e30, 0.2500001, 0.25])
-    key = cuda_blend._depth_order_bits(d)
+    key = tbin.depth_order_bits(d)
     assert torch.equal(torch.argsort(key, stable=True), torch.argsort(d, stable=True))
 
 
@@ -134,6 +134,21 @@ def test_broadcast_plain_matches_jax_kernel(seed, n_emit, p, max_pairs):
                                interpret=True)
     assert got.shape == (16, max_pairs)
     np.testing.assert_array_equal(np_of(got)[:, :total], np.asarray(ref)[:, :total])
+
+
+def test_broadcast_plain_matches_jax_past_the_table():
+    """Ranks at and past the table's last row (P, P + 1, ... as sentinel
+    slots carry): JAX's one-hot matmul over zero-padded rows gives 0
+    there, and so does K3's plain version, bit for bit everywhere."""
+    rng = np.random.default_rng(9)
+    p, max_pairs = 300, 1024
+    ctable = rng.standard_normal((p, 16)).astype(np.float32)
+    ranks = np.sort(rng.integers(160, p + 40, max_pairs)).astype(np.int32)
+    assert (ranks >= p).sum() > 50
+    got = cuda_blend.broadcast_fields(torch.from_numpy(ctable), torch.from_numpy(ranks))
+    ref = jpb.broadcast_fields(jnp.asarray(ctable), jnp.asarray(ranks), interpret=True)
+    np.testing.assert_array_equal(np_of(got), np.asarray(ref))
+    assert (np_of(got)[:, ranks >= p] == 0).all()
 
 
 K1_CASES = [(True, False), (False, False), (False, True)]
@@ -314,14 +329,14 @@ def test_config_validation_matches_jax():
 @pytest.mark.parametrize("kw", [dict(backend="xla"), dict(backend="oracle"),
                                 dict(layout="lockstep")])
 def test_unported_paths_raise(kw):
-    """The xla and oracle backends are not ported; lockstep renders one
-    view (K5), and batched rendering refuses it as JAX does."""
+    """Batched rendering stacks the views on the mixed kernel's tile axis:
+    as in JAX it refuses the xla and oracle backends and the lockstep
+    layout (which render one view at a time), naming what it got."""
     cam = make_camera(W, H)
     tc, tcs = cam.torch()
     gauss = to_torch(*make_gaussians(1, n=10))
-    fn = tras.render_batch if "layout" in kw else tras.render
     with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
-        fn(*gauss, tc, tcs, torch.zeros(3), cfg=tras.RasterizeConfig(**kw))
+        tras.render_batch(*gauss, tc, tcs, torch.zeros(3), cfg=tras.RasterizeConfig(**kw))
 
 
 def test_blend_refuses_gradients():

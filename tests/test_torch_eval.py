@@ -132,16 +132,20 @@ def test_load_session_matches_jax(sessions):
 
 
 def test_unported_backend_is_named(run):
-    """A ``cfg_args`` without ``backend`` means "xla" in JAX; the port
-    loads the session and refuses to render it, naming the backend."""
+    """A ``cfg_args`` without ``backend`` means "xla" in JAX and in the
+    port, which now renders it: the held-out view matches JAX's xla
+    render (the name predates the xla backend's port)."""
     _, model = run
     ts = tsession.load_session(model, device="cpu")
-    assert ts.rcfg.backend == "xla"
+    js = jsession.load_session(model)
+    assert ts.rcfg.backend == js.rcfg.backend == "xla"
+    R, T = _poses(ts.scene.info.test_cameras)
     cam = tpose.pose_to_camera(tpose.init_pose_params(
-        *(torch.from_numpy(a) for a in _poses(ts.scene.info.test_cameras))), 0,
-        torch.from_numpy(ts.scene.proj))
-    with pytest.raises(NotImplementedError, match="xla"):
-        tsession.render_view(ts, cam)
+        *(torch.from_numpy(a) for a in (R, T))), 0, torch.from_numpy(ts.scene.proj))
+    got, _ = tsession.render_view(ts, cam)
+    want, _ = jsession.render_view(js, jpose.pose_to_camera(
+        jpose.init_pose_params(jnp.asarray(R), jnp.asarray(T)), 0, jnp.asarray(js.scene.proj)))
+    np.testing.assert_allclose(np_of(got), np_of(want), atol=1e-5, rtol=1e-4)
 
 
 def _cameras(js, ts, R, T):
@@ -335,8 +339,25 @@ def test_cli_evaluate_matches_jax(run):
             assert os.path.exists(os.path.join(model, "test", split, kind, "000.png"))
 
 
-def test_cli_without_a_held_out_split_raises(tmp_path):
-    _, model = _write_run(str(tmp_path), eval_split=False)
-    os.remove(os.path.join(os.path.dirname(model), "scene", "hold=3"))
-    with pytest.raises(NotImplementedError, match="initialize_test_pose"):
-        tcli.main(["-m", model, "--backend", "pallas", "--device", "cpu"])
+def test_cli_without_a_held_out_split_raises(tmp_path, monkeypatch, capsys):
+    """Without a held-out split both CLIs try COLMAP registration of
+    ``test_images/``; with no ``colmap`` binary that raises inside, and
+    both print why and return None (the name predates the port of
+    ``initialize_test_pose``)."""
+    from deblurgs_tpu.tools import colmap_pipeline as jcp
+    from deblurgs_tpu_torch.tools import colmap_pipeline as tcp
+
+    source, model = _write_run(str(tmp_path), eval_split=False)
+    os.remove(os.path.join(source, "hold=3"))
+    os.makedirs(os.path.join(source, "test_images"))
+    for cp in (jcp, tcp):
+        monkeypatch.setattr(cp, "colmap_available", lambda: False)
+    argv = ["-m", model, "-s", source, "--backend", "pallas"]
+    assert jcli.main(argv) is None
+    want = capsys.readouterr().out
+    assert tcli.main(argv + ["--device", "cpu"]) is None
+    got = capsys.readouterr().out
+    assert "cannot register test poses" in got and "nothing to evaluate" in got
+    assert [line for line in got.splitlines() if "test poses" in line or "nothing" in line] == [
+        line for line in want.splitlines() if "test poses" in line or "nothing" in line]
+    assert not os.path.exists(os.path.join(model, "eval.txt"))

@@ -20,8 +20,8 @@ Gaussians).
   the plain version's;
 - the schedule against JAX's ``forward_mixed`` (Pallas, interpret mode) at
   tile 32 and 16×8, at ``tests/test_rasterizer.py``'s tolerance;
-- K3's plain version writes NaN for a rank outside [0, n_rows), as the
-  kernel does.
+- K3's plain version writes 0 for a rank outside [0, n_rows), as the
+  kernel does and as JAX's ``broadcast_fields`` gives.
 
 ``tests/test_torch_cuda.py`` holds the kernels to these plain versions on
 the card.
@@ -185,14 +185,15 @@ def test_schedule_matches_jax_kernel(tile_w, tile_h):
 @pytest.mark.parametrize("n_rows", [0, 7])
 def test_broadcast_plain_writes_nan_out_of_range(n_rows):
     """K3's plain version: ctable[gauss_c].T where the rank is in range,
-    NaN where it is negative or at least n_rows (never an IndexError)."""
+    0 where it is negative or at least n_rows (never an IndexError); the
+    name predates the change from NaN to JAX's 0."""
     rng = np.random.default_rng(4)
     ctable = torch.from_numpy(rng.standard_normal((n_rows, 16)).astype(np.float32))
     gauss_c = torch.tensor([0, 0, 1, 3, 3, 6, 7, -1, 9, 2 ** 31 - 1, 6], dtype=torch.int32)
     got = cuda_blend.broadcast_fields(ctable, gauss_c)
     assert got.shape == (16, gauss_c.shape[0])
     ok = (gauss_c >= 0) & (gauss_c < n_rows)
-    assert bool(torch.isnan(got[:, ~ok]).all())
+    assert bool((got[:, ~ok] == 0).all())
     if n_rows:
         assert torch.equal(got[:, ok], ctable[gauss_c[ok].long()].T)
 

@@ -8,12 +8,15 @@ tile 16, three sub-frame times so the interpreted JAX kernel stays fast).
 
 At that size a tile's list runs to ~2,500 pairs, and the JAX package's
 Pallas kernel takes its transmittance as exp(prefix sum of log(1 - alpha))
-with the prefix in split-bf16 matmuls: on this scene it lands 5.3e-4 from
-the exact (float64) sequential composite of the same pairs, where the
-port's float32 sequential loop lands 2.8e-5 from it. So the query is held
-to JAX at atol 1e-3 (depth, which adds T·z_far, at 5e-2), and both are
-held to the float64 composite: the port within 5e-5, JAX within 1e-3, and
-the port never further from it than JAX.
+with the prefix in split-bf16 matmuls. Its distance from the exact
+(float64) sequential composite of the same pairs depends on the host: it
+read 5.3e-4 on one x86 host and 1.044e-3 on another, where the port's
+float32 sequential loop read 3.69e-6. So the query is held to JAX at atol
+2e-3, twice the larger reading (depth, which adds T·z_far, at 5e-2), and
+both are held to the float64 composite: the port within 1e-5, JAX within
+2e-3, and the port never further from it than JAX. The float64 truth
+must differ from the port's float32 output somewhere, or the composite
+that was meant to run in float64 did not.
 """
 
 import math
@@ -116,8 +119,9 @@ def test_query_matches_jax(state, monkeypatch):
                                   nu=torch.from_numpy(nu)).blurred)
     err_port = np.abs(np_of(b.blurred) - truth).max()
     err_jax = np.abs(np_of(a.blurred) - truth).max()
-    assert err_port <= 5e-5 and err_jax <= 1e-3 and err_port <= err_jax, (err_port, err_jax)
-    np.testing.assert_allclose(np_of(b.blurred), np_of(a.blurred), atol=1e-3)
+    assert err_port > 0.0, "the float64 composite did not run"
+    assert err_port <= 1e-5 and err_jax <= 2e-3 and err_port <= err_jax, (err_port, err_jax)
+    np.testing.assert_allclose(np_of(b.blurred), np_of(a.blurred), atol=2e-3)
     # depth = D + T·z_far: JAX's transmittance drift, times z_far = 100
     np.testing.assert_allclose(np_of(b.depths), np_of(a.depths), atol=5e-2, rtol=1e-4)
     np.testing.assert_array_equal(np_of(b.radii), np_of(a.radii))
