@@ -120,6 +120,22 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               relative; each gradient within max(2e-4, 4× the spread of a
               second xla step) scaled; the updated leaves reported), both
               xla steps timed.
+15. parallel  ``parallel/`` at the train phase's operating point (2^17 slots):
+              (a) the step on a NCCL group of one rank, bit for bit the
+              plain step (loss, gradients, new state), both timed; then four
+              spawned ranks sharing the card over gloo (every collective
+              staged through host memory and counted; which collectives gloo
+              takes on CUDA tensors is probed first): (b) the sub-frames over
+              3 ranks of 7 views against the plain step (loss 1e-4 relative,
+              gradients within max(2e-5, 4× a rerun's spread) scaled), each
+              rank's K1 and K2 bit for bit on 16 sampled tiles of its block,
+              its launches, step ms and peak; (c) one view in 4 row slabs
+              against the whole render (image 2e-4, radii and visible equal,
+              gradients 2e-4 scaled); (d) the Gaussian axis over 2 ranks of
+              2^16 slots against the plain step; (e) the eval scene's 8
+              cameras, each rank decoding its block and every camera
+              broadcast to every rank bit for bit. Bytes each collective
+              moves a step.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -220,7 +236,9 @@ K6_DESIGN_MOVES_MS = {"K2's kernel in K1's layout, one pixel a thread, 8 warps":
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line in one write: the parallel phase's ranks share stdout."""
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), (json.dumps({"phase": phase, **fields}) + "\n").encode())
 
 
 def fail(msg: str) -> None:
@@ -926,17 +944,20 @@ def image_cotangent(torch, images, gt, lam_t):
     return torch.autograd.grad(total, img)[0]
 
 
-def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj):
+def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj, views=slice(None)):
     """The staged pairs, compositor outputs and image cotangent of the
-    step's render at ``state`` (no grad): what K2 and K4 see in the step."""
+    step's render at ``state`` (no grad): what K2 and K4 see in the step
+    (on a sub-frame mesh, a rank's block ``views``)."""
+    from deblurgs_tpu_torch.core.camera import CameraArrays
     from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, tile_blend
     from deblurgs_tpu_torch.train import schedules
 
-    bcfg = st.rcfg.blend_config(st.cs, n_images=st.n_sub)
     with torch.no_grad():
         nu = motion_lib.sample_nus(state.motion, [cam_idx], st.mcfg)
         cams = motion_lib.subframe_cameras_batch(state.motion, [cam_idx], nu, proj, st.mcfg)
+        cams = CameraArrays(*(x[views] for x in cams))
+        bcfg = st.rcfg.blend_config(st.cs, n_images=cams.view.shape[0])
         flat = flat_preprocess((gm.render_inputs(state.params, st.gcfg), st.sh_degree), cams,
                                st.cs, st.rcfg, state.aux.active)
         compact = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)    # = sort_stage
@@ -957,9 +978,10 @@ def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj):
                 n_con=n_con, dl_pix=dl_pix, dl_d=dl_d, P=flat[0].shape[0])
 
 
-def train_setup(torch, dev):
+def train_setup(torch, dev, capacity=None):
     """The full-width train step's state and statics (``bench.py``'s
-    ``_train_step_bench`` settings, batched render on)."""
+    ``_train_step_bench`` settings, batched render on); ``capacity`` slots
+    (default: the Gaussians)."""
     from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
     from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
     from deblurgs_tpu_torch.train import step as step_lib
@@ -970,7 +992,8 @@ def train_setup(torch, dev):
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)   # noqa: E731
     gcfg = gm.GaussianConfig(sh_degree=2)
     params, aux = gm.create_from_pcd(t(rng.standard_normal((N, 3)) * 2.0),
-                                     t(rng.uniform(0.0, 1.0, (N, 3))), gcfg, capacity=N)
+                                     t(rng.uniform(0.0, 1.0, (N, 3))), gcfg,
+                                     capacity=capacity or N)
     cs, proj = camera(W, H, 1.2, dev)
     mcfg = motion_lib.MotionConfig(curve_order=9, n_subframes=F)
     motion = motion_lib.init_motion(
@@ -2851,6 +2874,448 @@ def phase_backends(torch, dev):
     emit("backends_train", **backends_train(torch, dev))
 
 
+# ---------------------------------------------------------------------------
+# parallel: the port's parallel/ on one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_CAPACITY = 1 << 17    # the train point's 100k Gaussians in 2^17 slots
+PARALLEL_RANKS = 4             # (b) on the first 3 ranks, (c) and (e) on 4, (d) on 2
+PARALLEL_TIMED_STEPS = 2       # timed steps a rank in (b) and (d), after the checked one
+ROWS_SHARE = 1e-4             # (c): pixels, splats past JAX's tolerances (see rank_rows)
+
+
+def parallel_setup(torch, dev):
+    """The train phase's operating point at 2^17 slots and one step's draws
+    (the same on every rank: numpy and torch generators seeded alike)."""
+    from deblurgs_tpu_torch.train import step as step_lib
+
+    st, state, gt, proj = train_setup(torch, dev, capacity=PARALLEL_CAPACITY)
+    draws = step_lib.draw_step(state, st, gt.shape,
+                               torch.Generator(device=dev).manual_seed(SEED + 11))
+    return st, state, gt, proj, draws
+
+
+def step_parts(torch, st, state, gt, proj, draws):
+    """One train step in its three parts: (forward, gradients, new state,
+    metrics)."""
+    from deblurgs_tpu_torch.train import step as step_lib
+
+    fwd = step_lib.forward_loss(state, gt, 0, proj, st, draws)
+    grads = step_lib.backward(fwd)
+    new, metrics = step_lib.apply(state, fwd, grads, st, draws)
+    return fwd, grads, new, metrics
+
+
+def timed_steps(torch, st, state, gt, proj, draws, n: int) -> dict:
+    """``n`` train steps from ``state`` with the same draws: CUDA-event and
+    host ms each, and the peak memory of this process."""
+    from deblurgs_tpu_torch.train import step as step_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev, host = [], []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, _ = step_lib.train_step(state, gt, 0, proj, st, draws=draws)
+        b.record()
+        torch.cuda.synchronize()
+        host.append(round((time.perf_counter() - t0) * 1e3, 3))
+        ev.append(round(a.elapsed_time(b), 3))
+    return dict(step_ms_events=ev, step_ms_host=host,
+                peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+
+
+def tree_scaled_err(got, want) -> float:
+    return max(scaled_err(g, w) for g, w in zip(got, want))
+
+
+# The alignment logits' gradient is a sum of terms that nearly cancel (a
+# softmax over the sub-frame times; ~1e-3 of the curves'), so two orders of
+# the same sum part by ~1e-3 of it (two xla steps of the backends phase:
+# 1.4e-3, PERF.md): ``nu`` is held to this bound, which a missing or
+# doubled share still fails.
+NU_GRAD_BOUND = 1e-2
+
+
+def grad_errs(torch, grads, ref, dev, rows=slice(None), block=slice(None)) -> dict:
+    """Each gradient leaf's max |diff| over the reference leaf's max |.|
+    (``rows`` of the Gaussian leaves and of the views' ``block`` for a
+    sharded rank)."""
+    errs = {}
+    for g, (name, w) in zip(grads[0], ref["g_params"].items()):
+        errs[name] = max_err(g, w[rows].to(dev)) / (float(w.abs().max()) or 1.0)
+    for g, (name, w) in zip(grads[1], ref["g_motion"].items()):
+        errs[name] = scaled_err(g, w.to(dev))
+    w = ref["g_vsp"]
+    errs["vsp"] = max_err(grads[2], w[block][:, rows].to(dev)) / float(w.abs().max())
+    return errs
+
+
+def check_grad_errs(where: str, errs: dict, bound: float) -> None:
+    bad = {k: v for k, v in errs.items() if not v <= (NU_GRAD_BOUND if k == "nu" else bound)}
+    if bad:
+        raise AssertionError(f"{where}: gradients {bad} past {bound:.1e} "
+                             f"(nu: {NU_GRAD_BOUND:.0e})")
+
+
+def parallel_world1(torch, dev, setup, root: str) -> dict:
+    """(a) The step on a NCCL group of one rank against the plain step: bit
+    for bit (loss, every gradient, every leaf of the new state); both timed.
+    Also the plain step twice (its own spread) and the references of (b),
+    (c) and (d), saved to ``root``."""
+    import torch.distributed as dist
+
+    from deblurgs_tpu_torch.parallel import shard
+
+    st, state, gt, proj, draws = setup
+    fwd, grads, new, metrics = step_parts(torch, st, state, gt, proj, draws)
+    _, grads2, _, _ = step_parts(torch, st, state, gt, proj, draws)
+    spread = max(tree_scaled_err(grads2[0], grads[0]), tree_scaled_err(grads2[1], grads[1]),
+                 scaled_err(grads2[2], grads[2]))
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "nccl"),
+                            world_size=1, rank=0)
+    try:
+        mesh = shard.make_mesh(device=dev)
+        st_m = dataclasses.replace(st, mesh=mesh)
+        mesh.reset_traffic()
+        fwd_m, grads_m, new_m, metrics_m = step_parts(torch, st_m, state, gt, proj, draws)
+        traffic = mesh.traffic_report()
+        if not torch.equal(fwd_m.total, fwd.total):
+            raise AssertionError(f"(a) loss {float(fwd_m.total)} != {float(fwd.total)}")
+        for name, a, b in (("params", grads_m[0], grads[0]), ("motion", grads_m[1], grads[1]),
+                           ("vsp", (grads_m[2],), (grads[2],)),
+                           ("new params", new_m.params, new.params),
+                           ("new motion", new_m.motion, new.motion),
+                           ("new aux", new_m.aux, new.aux),
+                           ("new adam", tuple(new_m.adam_g.mu) + tuple(new_m.adam_g.nu),
+                            tuple(new.adam_g.mu) + tuple(new.adam_g.nu))):
+            for x, y in zip(a, b):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"(a) {name} differs by {max_err(x, y):.3e}")
+        ms = {"plain": timed_steps(torch, st, state, gt, proj, draws, 3),
+              "nccl_world_1": timed_steps(torch, st_m, state, gt, proj, draws, 3)}
+    finally:
+        dist.destroy_process_group()
+    # the references of (b)-(d): the plain step's loss and gradients, and
+    # one sharp view rendered whole, with the gradients of sum(image · w)
+    cpu = lambda t: tuple(x.detach().cpu() for x in t)   # noqa: E731
+    rows = rows_reference(torch, st, state, proj, draws.bg)
+    torch.save(dict(loss=float(fwd.total.detach()), g_params=dict(zip(grads[0]._fields, cpu(grads[0]))),
+                    g_motion=dict(zip(grads[1]._fields, cpu(grads[1]))),
+                    g_vsp=grads[2].detach().cpu(), spread=spread,
+                    num_pairs=int(metrics.num_pairs), rows=rows),
+               os.path.join(root, "reference.pt"))
+    return dict(bitwise=True, grad_spread_of_a_rerun=spread, step_ms=ms,
+                collectives_a_step=traffic, loss=float(fwd.total.detach()),
+                num_pairs=int(metrics.num_pairs))
+
+
+def rows_view(torch, st, state, proj):
+    """(c)'s view: the train curve's middle sub-frame, its render inputs,
+    a one-view pair budget and loss weights (seeded alike on every rank)."""
+    from deblurgs_tpu_torch.core.camera import CameraArrays
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+
+    with torch.no_grad():
+        nu = motion_lib.sample_nus(state.motion, [0], st.mcfg)
+        cams = motion_lib.subframe_cameras_batch(state.motion, [0], nu, proj, st.mcfg)
+        mid = slice(st.n_sub // 2, st.n_sub // 2 + 1)
+        rin = {k: v.detach() for k, v in gm.render_inputs(state.params, st.gcfg).items()}
+        budget = size_max_pairs((rin, st.sh_degree), CameraArrays(*(x[mid] for x in cams)),
+                                st.cs, st.rcfg, state.aux.active)
+    w = torch.randn((st.cs.height, st.cs.width, 3), device=proj.device,
+                    generator=torch.Generator(device=proj.device).manual_seed(SEED + 12))
+    return cams.view[mid][0], rin, dataclasses.replace(st.rcfg, max_pairs=budget), w
+
+
+def rows_reference(torch, st, state, proj, bg) -> dict:
+    """(c)'s reference: the view rendered whole (K3, K1) and the gradients
+    of ``sum(image · w)`` for means and opacities (K2, K4)."""
+    from deblurgs_tpu_torch.core.camera import make_camera_arrays
+    from deblurgs_tpu_torch.ops.rasterize import render
+
+    view, rin, rcfg, w = rows_view(torch, st, state, proj)
+    means = rin["means3d"].clone().requires_grad_(True)
+    opac = rin["opacities"].clone().requires_grad_(True)
+    out = render(means, rin["scales"], rin["rotations"], opac, rin["shs"],
+                 make_camera_arrays(view, proj), st.cs, bg, cfg=rcfg, sh_degree=st.sh_degree,
+                 active=state.aux.active)
+    g_means, g_opac = torch.autograd.grad(torch.sum(out.image * w), (means, opac))
+    return dict(image=out.image.detach().cpu(), radii=out.radii.cpu(),
+                visible=out.visible.cpu(), num_pairs=int(out.num_pairs),
+                g_means=g_means.cpu(), g_opac=g_opac.cpu())
+
+
+def probe_collectives(torch, dev) -> dict:
+    """Which collectives gloo runs on CUDA tensors here, each tried on
+    every rank of the group (a refusal raises on every rank alike)."""
+    import torch.distributed as dist
+
+    n, out = dist.get_world_size(), {}
+    x = torch.ones(4 * n, device=dev)
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x),
+             "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 torch.empty(4 * n * n, device=dev), x),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                 torch.empty(4, device=dev), x),
+             "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x)}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+    return out
+
+
+def rank_subframe(torch, mesh, setup, ref) -> dict:
+    """(b) this rank's block of the 21 views: the checked step against the
+    plain one, its launches, K1 and K2 bit for bit on 16 sampled tiles of
+    the block, the timed steps and the bytes a step's collectives move."""
+    from deblurgs_tpu_torch.parallel import shard
+
+    st, state, gt, proj, draws = setup
+    block = shard.local_views(mesh, st.n_sub)
+    with torch.no_grad():
+        from deblurgs_tpu_torch.core.camera import CameraArrays
+        from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+
+        nu = motion_lib.sample_nus(state.motion, [0], st.mcfg)
+        cams = motion_lib.subframe_cameras_batch(state.motion, [0], nu, proj, st.mcfg)
+        budget = size_max_pairs((gm.render_inputs(state.params, st.gcfg), st.sh_degree),
+                                CameraArrays(*(x[block] for x in cams)), st.cs, st.rcfg,
+                                state.aux.active)
+    budget = int(shard.all_reduce(mesh, torch.tensor(budget, device=proj.device), "max"))
+    st_b = dataclasses.replace(st, rcfg=dataclasses.replace(st.rcfg, max_pairs=budget),
+                               mesh=mesh)
+    mesh.reset_traffic()
+    zero_counts()
+    fwd, grads, _, metrics = step_parts(torch, st_b, state, gt, proj, draws)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    traffic = mesh.traffic_report()
+    loss = float(fwd.total.detach())
+    if not abs(loss - ref["loss"]) <= 1e-4 * abs(ref["loss"]):
+        raise AssertionError(f"(b) rank {mesh.rank}: loss {loss} against {ref['loss']}")
+    bound = max(GRAD_ATOL, 4 * ref["spread"])
+    dev = proj.device
+    errs = grad_errs(torch, grads, ref, dev, block=block)
+    check_grad_errs(f"(b) rank {mesh.rank}", errs, bound)
+    k = step_kernel_inputs(torch, st_b, state, gt, draws.bg, 0, proj, views=block)
+    bcfg, staged = k["bcfg"], k["staged"]
+    tiles = torch.from_numpy(np.random.default_rng(SEED + 13 + mesh.rank).choice(
+        bcfg.total_tiles, 16, replace=False)).to(dev)
+    err_k1 = check_k1(torch, f"(b) rank {mesh.rank}", bcfg, staged,
+                      (k["C"], k["D"], k["T"], k["n_con"]), tiles=tiles)
+    from deblurgs_tpu_torch.ops import cuda_blend_mixed
+
+    kargs = (draws.bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
+    pg = cuda_blend_mixed.backward_mixed(bcfg, staged, *kargs)
+    err_k2 = check_k2(torch, f"(b) rank {mesh.rank}", bcfg, staged, *kargs, pg, tiles=tiles)
+    return dict(views=[block.start, block.stop], max_pairs=budget,
+                num_pairs=int(metrics.num_pairs), loss=loss, grad_err_scaled=errs,
+                grad_bound=bound, launches=launches, err_k1_16_tiles=err_k1,
+                err_k2_16_tiles=err_k2[1], collectives_a_step=traffic,
+                **timed_steps(torch, st_b, state, gt, proj, draws, PARALLEL_TIMED_STEPS))
+
+
+def rank_rows(torch, mesh, setup, ref) -> dict:
+    """(c) this rank's row slab of one 1080p view: the frame and the
+    gradients of ``sum(image · w)`` against the whole render."""
+    from deblurgs_tpu_torch.parallel import tile_shard
+
+    st, state, gt, proj, draws = setup
+    view, rin, rcfg, w = rows_view(torch, st, state, proj)
+    fn = tile_shard.row_sharded_render(mesh, st.cs, proj, rcfg, sh_degree=st.sh_degree)
+
+    def run():
+        means = rin["means3d"].clone().requires_grad_(True)
+        opac = rin["opacities"].clone().requires_grad_(True)
+        out = fn(means, rin["scales"], rin["rotations"], opac, rin["shs"], view, draws.bg,
+                 active=state.aux.active)
+        return out, torch.autograd.grad(torch.sum(out.image * w), (means, opac))
+
+    mesh.reset_traffic()
+    zero_counts()
+    out, (g_means, g_opac) = run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    traffic = mesh.traffic_report()
+    rows = ref["rows"]
+    dev = proj.device
+    # A slab's crop camera reaches each splat's pixel position through other
+    # float32 roundings than the whole view's, so over 2M pixels and 100k
+    # splats a few alpha gates (1/255) and radius ceilings flip: held as
+    # shares past JAX's test tolerances (image 2e-4, gradients 2e-4 scaled),
+    # with the image within two flipped gates of a colour (8e-3)
+    diff = (out.image - rows["image"].to(dev)).abs()
+    img = {"max": float(diff.max()), "share_past_2e-4": float((diff > 2e-4).float().mean())}
+    radii_flips = int((out.radii.cpu() != rows["radii"]).sum())
+    visible_flips = int((out.visible.cpu() != rows["visible"]).sum())
+    errs = {}
+    for name, g, want in (("means", g_means, rows["g_means"]),
+                          ("opacities", g_opac, rows["g_opac"])):
+        d = ((g - want.to(dev)).abs().reshape(g.shape[0], -1).amax(-1)
+             / float(want.abs().max()))
+        errs[name] = {"max_scaled": float(d.max()),
+                      "share_past_2e-4": float((d > 2e-4).float().mean())}
+    P = out.radii.shape[0]
+    if not (img["max"] <= 8e-3 and img["share_past_2e-4"] <= ROWS_SHARE
+            and radii_flips <= ROWS_SHARE * P and visible_flips <= ROWS_SHARE * P
+            and all(e["share_past_2e-4"] <= ROWS_SHARE for e in errs.values())):
+        raise AssertionError(f"(c) rank {mesh.rank}: image {img}, radii flips {radii_flips}, "
+                             f"visible flips {visible_flips}, gradients {errs}")
+    ms = cuda_ms(lambda: run(), 3)
+    slab_h = tile_shard.slab_layout(st.cs, mesh.size, rcfg.tile_h)[0]
+    return dict(rows=[mesh.rank * slab_h, (mesh.rank + 1) * slab_h], max_pairs=rcfg.max_pairs,
+                image_err=img, radii_flips=radii_flips, visible_flips=visible_flips,
+                grad_err=errs, num_pairs_max_slab=int(out.num_pairs),
+                num_pairs_whole=rows["num_pairs"], launches=launches,
+                forward_backward_ms=round(ms, 3), collectives=traffic)
+
+
+def rank_gauss(torch, mesh, setup, ref) -> dict:
+    """(d) this rank's half of the 2^17 slots: the checked step against the
+    plain one (its rows' gradients), launches, timed steps, bytes."""
+    from deblurgs_tpu_torch.parallel import gauss_shard
+
+    st, state, gt, proj, draws = setup
+    local = gauss_shard.shard_gauss_state(state, mesh)
+    rows = gauss_shard.local_rows(mesh, PARALLEL_CAPACITY)
+    st_g = dataclasses.replace(st, mesh=mesh)
+    mesh.reset_traffic()
+    zero_counts()
+    fwd, grads, _, metrics = step_parts(torch, st_g, local, gt, proj, draws)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    traffic = mesh.traffic_report()
+    loss = float(fwd.total.detach())
+    if not abs(loss - ref["loss"]) <= 1e-4 * abs(ref["loss"]):
+        raise AssertionError(f"(d) rank {mesh.rank}: loss {loss} against {ref['loss']}")
+    dev = proj.device
+    errs = grad_errs(torch, grads, ref, dev, rows=rows)
+    bound = max(GRAD_ATOL, 4 * ref["spread"])
+    check_grad_errs(f"(d) rank {mesh.rank}", errs, bound)
+    return dict(rows=[rows.start, rows.stop], loss=loss, grad_err_scaled=errs,
+                grad_bound=bound, launches=launches, num_pairs=int(metrics.num_pairs),
+                collectives_a_step=traffic,
+                **timed_steps(torch, st_g, local, gt, proj, draws, PARALLEL_TIMED_STEPS))
+
+
+def rank_cameras(torch, mesh, source: str) -> dict:
+    """(e) the eval scene's 8 cameras: this rank decodes its block only,
+    and every camera is selected on every rank (digests of the bytes)."""
+    import hashlib
+
+    from deblurgs_tpu_torch.data.scene import Scene
+    from deblurgs_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    n = len(Scene(source, None, resolution=1, load_indices=[]).info.train_cameras)
+    mine = multihost.host_local_camera_split(n)
+    scene = Scene(source, None, resolution=1, load_indices=mine)
+    decode_s = time.perf_counter() - t0
+    stack = multihost.assemble_global_images(scene.train_images, mesh)
+    mesh.reset_traffic()
+    t0 = time.perf_counter()
+    digests = [hashlib.sha256(multihost.select_camera(stack, i).cpu().numpy().tobytes())
+               .hexdigest() for i in range(n)]
+    return dict(mine=mine, decode_s=round(decode_s, 3),
+                select_all_s=round(time.perf_counter() - t0, 3),
+                zero_rows=[i for i in range(n) if not scene.train_images[i].any()],
+                digests=digests, collectives=mesh.traffic_report())
+
+
+def parallel_rank(rank: int, root: str, source: str) -> dict:
+    """One rank of the parallel phase (gloo, the ranks sharing the card):
+    the collectives probe, then (b), (c), (d) and (e) on meshes of the
+    first 3, 4, 2 and 4 ranks; the others wait for the next mesh."""
+    import torch
+
+    from deblurgs_tpu_torch.device import resolve_device
+    from deblurgs_tpu_torch.ops import kernels
+    from deblurgs_tpu_torch.parallel import gauss_shard, shard, tile_shard
+
+    dev = resolve_device("cuda")
+    kernels.load_library()                 # built by the parent
+    out = {"collectives_on_cuda_tensors": probe_collectives(torch, dev)}
+    setup = parallel_setup(torch, dev)
+    ref = torch.load(os.path.join(root, "reference.pt"))
+    for key, n, axis, fn in (("b", 3, "sf", rank_subframe), ("c", 4, tile_shard.PIXEL_AXIS,
+                                                              rank_rows),
+                             ("d", 2, gauss_shard.GAUSS_AXIS, rank_gauss)):
+        mesh = shard.make_mesh(n, axis, device="cuda", share_card=True)
+        if mesh is not None:
+            out[key] = fn(torch, mesh, setup, ref)
+            emit(f"parallel_{key}", rank=rank, **out[key])
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    out["e"] = rank_cameras(torch, shard.make_mesh(None, "cam", device="cuda",
+                                                   share_card=True), source)
+    emit("parallel_e", rank=rank, **{k: v for k, v in out["e"].items() if k != "digests"})
+    return out
+
+
+def phase_parallel(torch, dev, train_step_ms) -> dict:
+    """``parallel/`` on one card: (a) the train point's step on a NCCL
+    group of one rank, bit for bit the plain step; then four ranks sharing
+    the card over gloo (every collective staged through host memory and
+    counted): (b) the sub-frames over 3 ranks of 7 views, (c) one view in 4
+    row slabs, (d) the Gaussian axis over 2 ranks of 2^16 slots, (e) the
+    eval scene's 8 cameras, each rank decoding its own. Returns the largest
+    K1 and K2 errors of the ranks' checks (0.0: bit for bit)."""
+    import hashlib
+    import tempfile
+
+    from deblurgs_tpu_torch.data.scene import Scene
+    from deblurgs_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        setup = parallel_setup(torch, dev)
+        a = parallel_world1(torch, dev, setup, root)
+        del setup
+        torch.cuda.empty_cache()
+        run = write_eval_run(torch, dev, os.path.join(root, "eval_run"))
+        full = Scene(run["source"], None, resolution=1).train_images
+        digests = [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest() for x in full]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = multihost.launch(parallel_rank, PARALLEL_RANKS, root, run["source"],
+                                 device="cuda", share_card=True, timeout_s=600)
+        launch_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["e"]["digests"] != digests:
+            raise AssertionError("(e) a rank selected a camera unlike the whole decode")
+        for key, n in (("b", 3), ("c", 4), ("d", 2)):
+            if key in r:
+                counts = r[key]["launches"]
+                want = 1
+                if any(counts[k] != want for k in ("K3", "K1", "K2", "K4")):
+                    raise AssertionError(f"({key}) launches {counts}")
+    b = [r["b"] for r in ranks if "b" in r]
+    per_rank = lambda key, field: [r[key][field] for r in ranks if key in r]   # noqa: E731
+    emit("parallel", a=a,
+         b_step_ms_events=per_rank("b", "step_ms_events"),
+         b_peak_memory_gb=per_rank("b", "peak_memory_gb"),
+         c_forward_backward_ms=per_rank("c", "forward_backward_ms"),
+         d_step_ms_events=per_rank("d", "step_ms_events"),
+         d_peak_memory_gb=per_rank("d", "peak_memory_gb"),
+         e_select_all_s=per_rank("e", "select_all_s"),
+         collectives_on_cuda_tensors=ranks[0]["collectives_on_cuda_tensors"],
+         plain_step_ms_train_phase=[round(x, 3) for x in train_step_ms],
+         ranks_share_the_card=True, launch_s=round(launch_s, 3),
+         seconds=round(time.perf_counter() - t_phase, 3))
+    return {"K1": max(x["err_k1_16_tiles"] for x in b),
+            "K2": max(x["err_k2_16_tiles"] for x in b)}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "deblurgs_tpu_torch")):
         fail("the deblurgs_tpu_torch package is not beside this script")
@@ -2888,6 +3353,9 @@ def main() -> int:
     cli_errs = phase_train_cli(torch, dev, train_step_ms)
     torch.cuda.empty_cache()
     phase_backends(torch, dev)
+    torch.cuda.empty_cache()
+    for key, err in phase_parallel(torch, dev, train_step_ms).items():
+        cli_errs[key] = max(cli_errs.get(key, 0.0), err)
     for entry in kernels:
         key = entry["name"].split()[0]
         if key in cli_errs:

@@ -12,6 +12,8 @@ Reads binary_little_endian and ascii; writes binary_little_endian.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 _TYPES = {
@@ -68,7 +70,10 @@ def read_ply(path) -> dict[str, np.ndarray]:
 
 
 def write_ply(path, columns: dict[str, np.ndarray]):
-    """Write a vertex element from a dict of equal-length column arrays."""
+    """Write a vertex element from a dict of equal-length column arrays.
+    The file is written beside ``path`` and renamed over it, so a reader
+    (another rank loading the same scene, which rewrites its point cloud)
+    sees the old file or the new one, never a part."""
     names = list(columns)
     n = len(next(iter(columns.values())))
     kinds = {name: columns[name].dtype.str.lstrip("<>=|") for name in names}
@@ -78,9 +83,11 @@ def write_ply(path, columns: dict[str, np.ndarray]):
     lines = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     lines += [f"property {_INV_TYPES[kinds[name]]} {name}" for name in names]
     lines.append("end_header")
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(("\n".join(lines) + "\n").encode("ascii"))
         f.write(arr.tobytes())
+    os.replace(tmp, path)
 
 
 def store_point_cloud(path, xyz: np.ndarray, rgb: np.ndarray):

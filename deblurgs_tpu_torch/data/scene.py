@@ -82,7 +82,8 @@ class Scene:
                  num_initial_pcd: int = -1, random_init: bool = False,
                  white_background: bool = False,
                  z_near: float = 0.2, z_far: float = 100.0,
-                 use_sigmoid: bool = False, shuffle: bool = True, seed: int = 0):
+                 use_sigmoid: bool = False, shuffle: bool = True, seed: int = 0,
+                 load_indices=None):
         self.model_path = model_path
         self.white_background = white_background
         self.info: SceneInfo = load_scene_info(
@@ -100,8 +101,15 @@ class Scene:
             with open(os.path.join(model_path, "cameras.json"), "w") as f:
                 json.dump([camera_to_json(i, c) for i, c in enumerate(cams)], f)
 
-        self.train_images = np.stack([load_image(c, resolution)
-                                      for c in self.info.train_cameras])
+        # a rank of a multi-process run decodes only its own images
+        # (parallel/multihost.py host_local_camera_split); the other rows
+        # stay zero and are never read on this rank
+        first = load_image(self.info.train_cameras[0], resolution)
+        n_train = len(self.info.train_cameras)
+        self.train_images = np.zeros((n_train,) + first.shape, first.dtype)
+        for i in range(n_train) if load_indices is None else load_indices:
+            self.train_images[i] = (first if i == 0 else
+                                    load_image(self.info.train_cameras[i], resolution))
         self.height, self.width = self.train_images.shape[1:3]
 
         c0 = self.info.train_cameras[0]

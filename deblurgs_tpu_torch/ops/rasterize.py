@@ -26,7 +26,7 @@ there.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -121,16 +121,21 @@ def render(
     colors_precomp: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
     vsp: Optional[torch.Tensor] = None,
+    pre_hook: Optional[Callable] = None,
 ) -> RenderOutput:
     """Render one view from post-activation Gaussian tensors.
 
     means3d [P, 3]; scales [P, 3]; rotations [P, 4] (w,x,y,z); opacities
     [P]; shs [P, K, 3] or None with ``colors_precomp`` [P, 3]; active [P]
     bool mask of live slots; vsp optional [P, 2] zeros added to the NDC
-    means. The tensors' device decides where it runs.
+    means. The tensors' device decides where it runs. ``pre_hook`` maps the
+    preprocessed per-Gaussian fields before binning (the Gaussian-axis
+    sharding gathers every rank's rows there).
     """
     pre = _preprocess(means3d, scales, rotations, opacities, shs, cam, cs, cfg,
                       sh_degree, colors_precomp, active, vsp)
+    if pre_hook is not None:
+        pre = pre_hook(pre)
     if cfg.backend == "oracle":
         image, depth_img, final_T, n_contrib = oracle_lib.oracle_render(
             pre, bg, width=cs.width, height=cs.height, tile_w=cfg.tile_w,
@@ -170,6 +175,7 @@ def render_batch(
     colors_precomp: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
     vsp: Optional[torch.Tensor] = None,
+    pre_hook: Optional[Callable] = None,
 ) -> RenderOutput:
     """Render F views of one scene with ONE staging pass and ONE
     compositing launch: the views stack on the tile axis (view s owns tiles
@@ -178,15 +184,18 @@ def render_batch(
     cams: CameraArrays batched [F, ...]; vsp optional [F, P, 2].
     ``cfg.max_pairs`` must budget all F views' pairs. Returns image
     [F, H, W, 3], depth/final_T/n_contrib [F, H, W], radii/visible [F, P].
+    ``pre_hook`` as in :func:`render`.
     """
     if cfg.backend != "pallas" or cfg.layout != "mixed":
         raise NotImplementedError(
             "render_batch requires backend='pallas', layout='mixed' (got layout="
             f"{cfg.layout!r}, backend={cfg.backend!r})")
     F = cams.view.shape[0]
-    P = means3d.shape[0]
     pre = _preprocess(means3d, scales, rotations, opacities, shs, cams, cs, cfg,
                       sh_degree, colors_precomp, active, vsp)
+    if pre_hook is not None:
+        pre = pre_hook(pre)
+    P = pre.means2d.shape[-2]
     flat = lambda x: x.reshape((F * P,) + x.shape[2:])  # noqa: E731
     (image, depth_img, final_T, n_contrib,
      num_pairs, max_per_tile) = tile_blend.blend_fused(

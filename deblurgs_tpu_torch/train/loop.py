@@ -24,9 +24,17 @@ Metrics stay on the device between drains: every ``sync_every`` iterations
 (and at a save and the last iteration) the pending metrics are copied to
 the host in one transfer. The random draws of every step come from one
 ``torch.Generator`` on the run's device, seeded from ``seed``; ``draws_fn``
-replaces them (tests inject JAX's draws through it). Multi-host training
-and sub-frame sharding (``parallel/`` of the JAX package) are not ported
-and raise.
+replaces them (tests inject JAX's draws through it).
+
+Several processes: when a process group of more than one rank is up, each
+rank keeps only its rows of the training images
+(``parallel/multihost.py``; build the ``Scene`` with
+``load_indices=multihost.host_local_camera_split(n)`` to decode only
+those) and a step's image is broadcast from the rank that owns it. Every
+rank draws the same camera sequence and the same step draws: the scene's
+shuffle and the run's generator are seeded alike on every rank. ``train(mesh=)``
+shards each step's sub-frames over the mesh's ranks. As in JAX, every rank
+writes the snapshots, checkpoints and ``time.txt`` of ``model_path``.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from deblurgs_tpu_torch.models import gaussians as gm
 from deblurgs_tpu_torch.models import motion as motion_lib
 from deblurgs_tpu_torch.ops import rasterize
 from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig
+from deblurgs_tpu_torch.parallel import multihost, shard
 from deblurgs_tpu_torch.train import checkpoint as ckpt_lib
 from deblurgs_tpu_torch.train import optim
 from deblurgs_tpu_torch.train import step as step_lib
@@ -133,11 +142,6 @@ class Trainer:
     draws_fn: Optional[Callable] = None   # (iteration, state) -> StepDraws
 
     def __post_init__(self):
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "multi-host training (parallel/multihost.py of the JAX package) is not "
-                "ported yet")
         if self.batched_render and not (self.rcfg.backend == "pallas"
                                         and self.rcfg.layout == "mixed"):
             # batched rendering stacks all views on the mixed kernel's tile
@@ -147,11 +151,18 @@ class Trainer:
                   f"layout={self.rcfg.layout!r} has no batched path — "
                   "falling back to per-view rendering")
             self.batched_render = False
-        self.device = resolve_device(self.device)
+        rank, world = multihost.rank_world()
+        if world > 1:
+            # this rank's card (an explicit index is kept: ranks share it)
+            self.device = shard.rank_device(self.device, rank, world)
+            self._gts = multihost.assemble_global_images(
+                self.scene.train_images, multihost.global_mesh("cam", device=self.device))
+        else:
+            self.device = resolve_device(self.device)
+            self._gts = torch.as_tensor(self.scene.train_images, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._step_cache: dict = {}
         self.logger = EmaLogger()
-        self._gts = torch.as_tensor(self.scene.train_images, device=self.device)
         self._proj = torch.as_tensor(self.scene.proj, device=self.device)
         self.training_time_sec = 0.0
         self._visualizer = None
@@ -167,23 +178,24 @@ class Trainer:
         return self._visualizer
 
     def statics(self, sh_degree: int, n_sub: int, random_sample: bool,
-                rcfg: RasterizeConfig) -> step_lib.TrainStatics:
-        """The train step's static settings for one phase and pair budget."""
+                rcfg: RasterizeConfig, mesh=None) -> step_lib.TrainStatics:
+        """The train step's static settings for one phase, pair budget and
+        mesh."""
         return step_lib.TrainStatics(
             gcfg=self.gcfg, mcfg=self.mcfg, ocfg=self.ocfg, rcfg=rcfg,
             cs=self.scene.camera_static, sh_degree=sh_degree, n_sub=n_sub,
             tone_mapping=self.tone_mapping, spatial_lr_scale=float(self.scene.cameras_extent),
             random_sample=random_sample,
-            white_background=getattr(self.scene, "white_background", False),
+            white_background=getattr(self.scene, "white_background", False), mesh=mesh,
             batched_render=self.batched_render, cams_per_step=self.cams_per_step)
 
     # -- step cache keyed by the static configuration (JAX's compiled variants)
     def _get_step(self, sh_degree: int, n_sub: int, random_sample: bool, capacity: int,
-                  rcfg: RasterizeConfig):
-        key = (sh_degree, n_sub, random_sample, capacity, rcfg)
+                  rcfg: RasterizeConfig, mesh=None):
+        key = (sh_degree, n_sub, random_sample, capacity, rcfg, mesh)
         if key not in self._step_cache:
             self._step_cache[key] = step_lib.make_train_step(
-                self.statics(sh_degree, n_sub, random_sample, rcfg))
+                self.statics(sh_degree, n_sub, random_sample, rcfg, mesh))
         return self._step_cache[key]
 
     def init_state(self, load_path: str | None = None, load_motion_path: str | None = None,
@@ -256,22 +268,24 @@ class Trainer:
         return max_pairs
 
     def _select(self):
-        """The step's camera index (B == 1) or indices and its GT images."""
+        """The step's camera index (B == 1) or indices and its GT images
+        (broadcast from their owners when the ranks split the images)."""
         if self.cams_per_step == 1:
             cam_idx = self.scene.get_random_cam_idx()
-            return cam_idx, cam_idx, self._gts[cam_idx]
+            return cam_idx, cam_idx, multihost.select_camera(self._gts, cam_idx)
         # B draws from the epoch-shuffled viewpoint stack (the reference
         # pops one per iteration, train.py:118-124)
         cam_idx = [self.scene.get_random_cam_idx() for _ in range(self.cams_per_step)]
         sel = torch.as_tensor(cam_idx, dtype=torch.int64, device=self.device)
+        if isinstance(self._gts, multihost.RankImages):
+            return cam_idx, sel, torch.stack([multihost.select_camera(self._gts, c)
+                                              for c in cam_idx])
         return cam_idx, sel, self._gts[sel]
 
     def train(self, state: step_lib.TrainState, first_iter: int = 1,
               iterations: int | None = None, mesh=None) -> step_lib.TrainState:
-        if mesh is not None:
-            raise NotImplementedError(
-                "sub-frame sharding over a mesh (parallel/ of the JAX package) is not "
-                "ported yet")
+        """Train from ``first_iter`` to ``iterations``; ``mesh`` (a sub-frame
+        ``parallel.shard.Mesh``) shards each step's views over its ranks."""
         iterations = iterations or self.ocfg.iterations
         if self.rcfg.max_pairs <= 0:
             self.rcfg = dataclasses.replace(self.rcfg,
@@ -281,7 +295,7 @@ class Trainer:
             t0 = time.time()
             sh_degree, n_sub, random_sample = self.phase_statics(iteration)
             fn = self._get_step(sh_degree, n_sub, random_sample, state.params.xyz.shape[0],
-                                rcfg)
+                                rcfg, mesh)
             cam_idx, sel, gt = self._select()
             draws = self.draws_fn(iteration, state) if self.draws_fn is not None else None
             state, metrics = fn(state, gt, sel, self._proj, draws=draws,

@@ -20,8 +20,17 @@ Differences from the JAX step, none of them in what it computes:
   argument (standard uniforms and normals, transformed here as JAX
   transforms its own), drawn from a ``torch.Generator`` when not given;
   ``state.rng`` is carried for the checkpoint and not used;
-- sub-frames shard across devices in JAX when ``mesh`` is set; that path
-  is not ported and raises.
+- with ``mesh`` set, JAX's ``shard_map`` splits the views over devices in
+  one process; here each rank of a process group runs this step on its
+  block of views (``parallel/shard.py``). The curves and Gaussians are
+  replicated (their gradients summed over the ranks in backward,
+  ``shard.replicate``), the rendered images and depths are gathered, so
+  every rank computes the whole loss (the blur mean, the smoothness pairs
+  that straddle two ranks' blocks, the depth TV) and takes its own views'
+  share of the cotangent back (``shard.gather_rows``); the densification
+  statistics and the pair counts are reduced over the ranks. A mesh on the
+  Gaussian axis (``parallel/gauss_shard.py``) instead renders every view
+  from this rank's rows of the state, gathered at the binning boundary.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from deblurgs_tpu_torch.models import gaussians as gm
 from deblurgs_tpu_torch.models import motion as motion_lib
 from deblurgs_tpu_torch.models import tonemap
 from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig, render, render_batch
+from deblurgs_tpu_torch.parallel import gauss_shard, shard
 from deblurgs_tpu_torch.train import losses, optim, schedules
 from deblurgs_tpu_torch.train.config import OptimizationConfig
 
@@ -68,10 +78,15 @@ class TrainStatics:
     spatial_lr_scale: float = 1.0
     random_sample: bool = False
     white_background: bool = False  # extra opacity reset at densify_from_iter
-    mesh: object = None        # sub-frame sharding: not ported, must be None
+    mesh: shard.Mesh | None = None  # sub-frame (or, through gauss_shard, Gaussian)
+                                    # sharding over a process group
     batched_render: bool = False  # ONE render_batch for all views (pallas
                                   # only; else, and on xla/oracle, a loop)
     cams_per_step: int = 1     # B training cameras per step
+
+    def __post_init__(self):
+        if self.mesh is not None and not isinstance(self.mesh, shard.Mesh):
+            raise TypeError(f"mesh must be a parallel.shard.Mesh, got {type(self.mesh).__name__}")
 
 
 class StepMetrics(NamedTuple):
@@ -128,6 +143,7 @@ def draw_step(state: TrainState, st: TrainStatics, gt_shape, generator: torch.Ge
     dev = state.params.xyz.device
     B = st.cams_per_step
     kw = dict(generator=generator, device=dev)
+    P = _capacity(state, st)
     _, do_densify, _ = _events(state.step, st.ocfg, st.white_background)
     nu_u = None
     if st.n_sub > 1 and st.random_sample and st.mcfg.curve_random_sample:
@@ -138,24 +154,49 @@ def draw_step(state: TrainState, st: TrainStatics, gt_shape, generator: torch.Ge
         noise = torch.randn((B,) + tuple(gt_shape[-3:]), **kw)
     split = None
     if do_densify:
-        P = state.params.xyz.shape[0]
         split = (torch.randn((P, 3), **kw), torch.randn((P, 3), **kw))
     return StepDraws(bg=bg, nu_u=nu_u, noise=noise, split=split)
 
 
-def _stack_renders(views: CameraArrays, rin, active, vsp, bg, st: TrainStatics):
-    """The views rendered one by one (``batched_render=False``):
-    images, depths, radii and per-view pair counts, stacked."""
-    outs = []
-    for s in range(views.view.shape[0]):
-        cam = CameraArrays(*(x[s] for x in views))
-        outs.append(render(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
-                           rin["shs"], cam, st.cs, bg, cfg=st.rcfg, sh_degree=st.sh_degree,
-                           active=active, vsp=vsp[s]))
-    return (torch.stack([o.image for o in outs]), torch.stack([o.depth for o in outs]),
-            torch.stack([o.radii for o in outs]),
-            torch.stack([o.num_pairs for o in outs]),
-            torch.stack([o.max_per_tile for o in outs]))
+def _gauss_mesh(st: TrainStatics):
+    """The step's Gaussian-axis mesh, or None."""
+    return st.mesh if st.mesh is not None and st.mesh.axis == gauss_shard.GAUSS_AXIS else None
+
+
+def _view_mesh(st: TrainStatics):
+    """The step's sub-frame mesh, or None."""
+    return st.mesh if st.mesh is not None and _gauss_mesh(st) is None else None
+
+
+def _capacity(state: TrainState, st: TrainStatics) -> int:
+    """The whole Gaussian capacity (a Gaussian-axis rank holds a block)."""
+    g = _gauss_mesh(st)
+    return state.params.xyz.shape[0] * (g.size if g is not None else 1)
+
+
+def _render_views(cams: CameraArrays, rin, active, vsp, bg, st: TrainStatics):
+    """Images, depths, radii and pair counts of this rank's block of the
+    views ``cams`` (all of them without a sub-frame mesh): one batched
+    render (pallas), else the views one by one, stacked. On a Gaussian-axis
+    mesh the preprocessed fields of every rank's rows are gathered before
+    binning."""
+    g = _gauss_mesh(st)
+    kw = dict(cfg=st.rcfg, sh_degree=st.sh_degree, active=active,
+              pre_hook=None if g is None else
+              (lambda pre: gauss_shard.gather_preprocessed(g, pre)))
+    args = (rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"], rin["shs"])
+    if st.batched_render and st.rcfg.backend == "pallas":
+        def block(_, views, vsp_l):
+            out = render_batch(*args, views, st.cs, bg, vsp=vsp_l, **kw)
+            return out.image, out.depth, out.radii, out.num_pairs, out.max_per_tile
+
+        return shard.sharded_block_render(block, _view_mesh(st))(None, cams, vsp)
+
+    def one(_, cam_vsp):
+        out = render(*args, cam_vsp[0], st.cs, bg, vsp=cam_vsp[1], **kw)
+        return out.image, out.depth, out.radii, out.num_pairs, out.max_per_tile
+
+    return shard.sharded_subframe_render(one, _view_mesh(st))(None, cams, vsp)
 
 
 class Forward(NamedTuple):
@@ -174,10 +215,11 @@ class Forward(NamedTuple):
 def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch.Tensor,
                  st: TrainStatics, draws: StepDraws) -> Forward:
     """The step's forward half: sub-frame cameras from the differentiated
-    curves, one batched render (or a loop), the blur and the loss."""
-    if st.mesh is not None:
-        raise NotImplementedError("sub-frame sharding over a mesh is not ported")
+    curves, one batched render (or a loop), the blur and the loss. On a
+    sub-frame mesh this rank renders its block of the views; on a
+    Gaussian-axis mesh every view from its rows of the state."""
     ocfg, gcfg, mcfg = st.ocfg, st.gcfg, st.mcfg
+    vmesh, gmesh = _view_mesh(st), _gauss_mesh(st)
     B = st.cams_per_step
     n_views = B * st.n_sub
     dev = state.params.xyz.device
@@ -195,29 +237,36 @@ def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch
     lambda_t_smooth = schedules.expon_lr(step, ocfg.lambda_t_smooth_init,
                                          ocfg.lambda_t_smooth_final,
                                          max_steps=ocfg.iterations).to(dev)
-    n_active = gm.num_active(active)
+    n_active = (gm.num_active(active) if gmesh is None
+                else gauss_shard.global_active(gmesh, active))
 
     # nu is sampled from the differentiated motion leaves, so the alignment
     # logits get gradients (train/step.py:138-145 of the JAX package)
     params = gm.GaussianParams(*(t.detach().requires_grad_(True) for t in state.params))
     motion = motion_lib.MotionParams(*(t.detach().requires_grad_(True) for t in state.motion))
-    vsp = torch.zeros((n_views, P, 2), dtype=torch.float32, device=dev, requires_grad=True)
-    rin = gm.render_inputs(params, gcfg)
+    block = shard.local_views(vmesh, n_views)
+    vsp = torch.zeros((block.stop - block.start, P, 2), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    # replicated leaves: their cotangents are summed over the ranks in
+    # backward (the Gaussians' only on a sub-frame mesh: on the Gaussian
+    # axis each rank owns its rows)
+    rparams = gm.GaussianParams(*shard.replicate(vmesh, *params))
+    rmotion = motion_lib.MotionParams(*shard.replicate(st.mesh, *motion))
+    rin = gm.render_inputs(rparams, gcfg)
     if st.n_sub == 1:
         nu = torch.zeros((B, 1), dtype=torch.float32, device=dev)
     else:
-        nu = motion_lib.sample_nus(motion, cam_idx, mcfg,
+        nu = motion_lib.sample_nus(rmotion, cam_idx, mcfg,
                                    draws.nu_u if st.random_sample else None)
-    cams = motion_lib.subframe_cameras_batch(motion, cam_idx, nu, proj, mcfg)
-    if st.batched_render and st.rcfg.backend == "pallas":
-        out = render_batch(rin["means3d"], rin["scales"], rin["rotations"], rin["opacities"],
-                           rin["shs"], cams, st.cs, bg, cfg=st.rcfg, sh_degree=st.sh_degree,
-                           active=active, vsp=vsp)
-        images, depths, radii = out.image, out.depth, out.radii
-        num_pairs, max_per_tile = out.num_pairs, out.max_per_tile
-    else:
-        images, depths, radii, num_pairs, max_per_tile = _stack_renders(
-            cams, rin, active, vsp, bg, st)
+    cams = motion_lib.subframe_cameras_batch(rmotion, cam_idx, nu, proj, mcfg)
+    images, depths, radii, num_pairs, max_per_tile = _render_views(
+        cams, rin, active, vsp, bg, st)
+    if vmesh is not None:
+        # every rank computes the whole loss from every view
+        images = shard.gather_rows(vmesh, images)
+        depths = shard.gather_rows(vmesh, depths)
+        counts = torch.stack([torch.max(num_pairs), torch.max(max_per_tile)]).to(torch.int64)
+        num_pairs, max_per_tile = shard.all_reduce(vmesh, counts, "max")
     images_b = images.reshape((B, st.n_sub) + images.shape[1:])
     blurred = torch.mean(images_b, dim=1)
 
@@ -228,7 +277,10 @@ def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch
     x = params.opacity[:, 0]
     lo = torch.where(x <= 0.0, x, 0.0)
     hi = torch.where(x >= 1.0, x - 1.0, 0.0)
-    hinge = torch.sum(torch.where(active, lo**2 + hi**2, 0.0)) / torch.clamp(n_active, min=1)
+    hinge = torch.sum(torch.where(active, lo**2 + hi**2, 0.0))
+    if gmesh is not None:
+        hinge = shard.sum_replicated(gmesh, hinge)
+    hinge = hinge / torch.clamp(n_active, min=1)
     total = (l1 + lambda_t_smooth * t_smooth + ocfg.lambda_depth_tv * depth_tv
              + ocfg.lambda_hinge * hinge)
     return Forward(total=total, leaves=tuple(params) + tuple(motion) + (vsp,), blurred=blurred,
@@ -254,6 +306,7 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
     B = st.cams_per_step
     step = int(state.step)
     dev = state.params.xyz.device
+    gmesh = _gauss_mesh(st)
     do_stats, do_densify, do_reset = _events(step, ocfg, st.white_background)
     g_params, g_motion, g_vsp = grads
 
@@ -282,14 +335,21 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
 
     # --- densification statistics from this step's grads, before any event
     # or Adam step (train.py:187-193); the loss averages over B cameras, so
-    # the vsp cotangent is scaled back by B
+    # the vsp cotangent is scaled back by B; on a sub-frame mesh the views'
+    # sums and max are reduced over the ranks' blocks, on the Gaussian axis
+    # each rank keeps its rows
     aux = state.aux
     if do_stats:
-        vis = fwd.radii > 0
+        radii = fwd.radii
+        if gmesh is not None:
+            radii = radii[..., gauss_shard.local_rows(gmesh, _capacity(state, st))]
+        vis = radii > 0
         norm = torch.linalg.norm(g_vsp, dim=-1) * B
-        accum_inc = torch.sum(torch.where(vis, norm, 0.0), dim=0)
-        denom_inc = torch.sum(vis, dim=0).to(torch.float32) / st.n_sub
-        radii_max = torch.max(torch.where(vis, fwd.radii, 0), dim=0).values.to(torch.float32)
+        accum_inc, count, radii_max = shard.reduce_view_stats(
+            _view_mesh(st), torch.sum(torch.where(vis, norm, 0.0), dim=0),
+            torch.sum(vis, dim=0).to(torch.float32),
+            torch.max(torch.where(vis, radii, 0), dim=0).values.to(torch.float32))
+        denom_inc = count / st.n_sub
         aux = aux._replace(xyz_grad_accum=aux.xyz_grad_accum + accum_inc,
                            denom=aux.denom + denom_inc,
                            max_radii2d=torch.maximum(aux.max_radii2d, radii_max))
@@ -303,9 +363,14 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
         thr = schedules.expon_lr(step, ocfg.densify_grad_threshold_init,
                                  ocfg.densify_grad_threshold_final,
                                  max_steps=ocfg.densify_annealing_until).to(dev)
-        new_params, aux, adam_g, report = densify_lib.densify_and_prune(
-            new_params, aux, adam_g, draws.split, cfg=gcfg, grad_threshold=thr,
-            scene_extent=st.spatial_lr_scale, percent_dense=ocfg.percent_dense)
+        def event(p, a, ad):
+            return densify_lib.densify_and_prune(
+                p, a, ad, draws.split, cfg=gcfg, grad_threshold=thr,
+                scene_extent=st.spatial_lr_scale, percent_dense=ocfg.percent_dense)
+
+        new_params, aux, adam_g, report = (
+            event(new_params, aux, adam_g) if gmesh is None else
+            gauss_shard.densify_event(gmesh, new_params, aux, adam_g, event))
     if do_reset:
         new_params, adam_g = densify_lib.reset_opacity(new_params, adam_g, gcfg)
 
@@ -333,7 +398,9 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
     metrics = StepMetrics(
         loss=fwd.total.detach(), l1=l1, t_smooth=t_smooth, hinge=hinge, depth_tv=depth_tv,
         psnr=losses.psnr(torch.clamp(fwd.blurred, 0, 1), torch.clamp(fwd.gt_linear, 0, 1)),
-        num_active=gm.num_active(aux.active), num_pairs=torch.max(fwd.num_pairs),
+        num_active=(gm.num_active(aux.active) if gmesh is None
+                    else gauss_shard.global_active(gmesh, aux.active)),
+        num_pairs=torch.max(fwd.num_pairs),
         max_per_tile=torch.max(fwd.max_per_tile), overflowed=overflowed,
         overflow_count=overflow_count, densify=report)
     new_state = TrainState(params=new_params, motion=new_motion, aux=aux, adam_g=adam_g,

@@ -379,10 +379,12 @@ def test_white_background_extra_reset():
 
 
 def test_mesh_is_not_ported():
+    """A ``mesh`` that is not a ``parallel.shard.Mesh`` is refused (the
+    sharded step itself: tests/test_torch_parallel.py)."""
     leaves, cs, proj, gts = _scene()
     _, ts = _statics(QUIET, 3, cs)
     _, state = _states(leaves, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tstep.train_step(state, torch.from_numpy(gts[0]), 0, torch.from_numpy(proj),
                          ts.__class__(**{**ts.__dict__, "mesh": object()}))
 

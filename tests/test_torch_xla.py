@@ -345,7 +345,8 @@ def test_loop_doubles_k_max(source, capsys):  # noqa: F811
         assert overflowed == (longest > k)
         if longest > k:
             k, growths = 2 * k, growths + 1
-    assert {key[-1].k_max for key in tt._step_cache} == used and growths > 0
+    # the cache key is JAX's: (sh_degree, n_sub, random_sample, capacity, rcfg, mesh)
+    assert {key[4].k_max for key in tt._step_cache} == used and growths > 0
     assert capsys.readouterr().out.count("[pairs] k_max →") == growths
 
 
