@@ -136,6 +136,18 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               cameras, each rank decoding its block and every camera
               broadcast to every rank bit for bit. Bytes each collective
               moves a step.
+16. recovery  ``scripts/validate_blur_recovery.main``'s joint arm at the r5
+              protocol's width (256², 12 cameras, F = 21, the checker
+              scene, 1,200 points in 9,600 slots, batched mixed training,
+              lockstep evaluation): 640 iterations (curves from 100, one
+              densification at 400), 30 pose-refinement iterations a view,
+              checkpoints every 200, with the launch counters zeroed just
+              before and read just after; its exit code (0 or 1), JAX's
+              report keys, finite numbers, no overflowed step, a
+              densification that cloned or split Gaussians and changed the
+              point count, the newest two checkpoints kept; then K1-K4 on one train step of the final
+              state and K5, K6 on one refinement step against their plain
+              versions, every tile, bit for bit.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -2875,6 +2887,166 @@ def phase_backends(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# recovery: the validation harness's joint arm at the r5 width
+# ---------------------------------------------------------------------------
+
+# the r5 protocol's scene (scripts/r5_cal3b.sh's CAL) with the joint arm's
+# batched training renders and lockstep evaluation; 640 iterations: the curves
+# from 100, one densification at 400 (densify_until is 0.7 × iters = 448)
+RECOVERY_FLAGS = ["--size", "256", "--n_cams", "12", "--n_sub", "21", "--tile", "32",
+                  "--max_pairs", str(1 << 21), "--texture", "checker", "--checker_cell", "0.5",
+                  "--blur_scale", "0.8", "--true_scale", "0.05", "--capacity_mult", "8",
+                  "--batched", "--layout", "lockstep", "--iters", "640", "--densify_from", "300",
+                  "--pose_refine_iters", "30", "--ckpt_every", "200"]
+# scripts/validate_blur_recovery.py:601-616, in its order
+RECOVERY_REPORT_KEYS = ["sharp_psnr", "traj_err", "traj_err_init", "traj_err_aligned",
+                        "traj_err_aligned_init", "overflow_steps", "blur_floor_psnr",
+                        "final_points", "sharp_psnr_midcam", "sharp_psnr_pose_refined", "nan_at",
+                        "iters", "n_cams", "n_sub", "size", "no_curve", "no_densify", "args"]
+
+
+def recovery_refine_check(torch, truth, state, view: int = 0):
+    """K5 and K6 on one pose-refinement step of ``view`` (from its learned
+    mid-exposure camera, as the script refines it) against their plain
+    versions, every tile, bit for bit."""
+    from deblurgs_tpu_torch.models import gaussians as gm, motion as motion_lib
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep as cbl, tile_blend
+    from deblurgs_tpu_torch.scripts import validate_blur_recovery as vbr
+
+    dev = truth.dev
+    with torch.no_grad():
+        cam0 = vbr.one(motion_lib.subframe_cameras_batch(
+            state.motion, [view], torch.full((1, 1), 0.5, device=dev), truth.proj,
+            truth.mcfg), 0)
+        cam = vbr.pose_camera(vbr.pose_of(cam0), truth.proj)
+        bcfg = truth.rcfg_eval.blend_config(truth.cs)
+        flat = flat_preprocess((gm.render_inputs(state.params, truth.gcfg), 2),
+                               type(cam)(*(x[None] for x in cam)), truth.cs, truth.rcfg_eval,
+                               state.aux.active)
+        staged = cuda_blend.sort_stage(bcfg, *flat, bcfg.max_pairs)
+        if int(staged.total) > bcfg.max_pairs:
+            raise AssertionError("recovery: the refinement view overflows its pair budget")
+        bg = torch.zeros(3, device=dev)
+        C, D, T, n_con = cbl.forward_lockstep(bcfg, staged)
+        image = tile_blend.compose(bcfg, C, D, T, n_con, bg)[0]
+    img = image.detach().requires_grad_(True)
+    d_img = torch.autograd.grad(torch.abs(img - truth.sharp_gts[view]).mean(), img)[0]
+    dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
+    dl_d = torch.zeros_like(D)
+    pg = cbl.backward_lockstep(bcfg, staged, bg, T, dl_pix, dl_d, C, D)
+    return (check_k5(torch, "recovery refinement", bcfg, staged, (C, D, T, n_con)),
+            check_k6(torch, "recovery refinement", bcfg, staged, bg, T, dl_pix, dl_d, C, D, pg),
+            int(staged.total))
+
+
+def phase_recovery(torch, dev) -> dict:
+    """``scripts/validate_blur_recovery.main``'s joint arm at the r5 width
+    (RECOVERY_FLAGS) with the launch counters zeroed just before and read
+    just after: exit code 0 or 1, JAX's report keys, finite numbers, no
+    overflowed step, a densification that cloned or split Gaussians and
+    changed the point count (its prune may outweigh its growth, as in JAX's
+    r5 joint run: 1,200 points to 742 at its first event), the newest two
+    checkpoints kept; then K1-K4 on one train step of the final state and
+    K5, K6 on one refinement step, against their plain versions, every tile.
+    Returns the kernels' largest errors."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed
+    from deblurgs_tpu_torch.scripts import validate_blur_recovery as vbr
+    from deblurgs_tpu_torch.train import checkpoint, step as step_lib
+
+    real_step, events = step_lib.train_step, []
+
+    def observed(state, gt, idx, proj, st, **kw):
+        """The step, its densify report read where the event fires."""
+        new, metrics = real_step(state, gt, idx, proj, st, **kw)
+        if step_lib._events(state.step, st.ocfg, st.white_background)[1]:
+            events.append({"step": state.step, "active": int(metrics.num_active),
+                           **{k: int(v) for k, v in metrics.densify._asdict().items()}})
+        return new, metrics
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        report_path, state_path = os.path.join(root, "joint.json"), os.path.join(root, "state.npz")
+        argv = RECOVERY_FLAGS + ["--report", report_path, "--save_state", state_path,
+                                 "--device", str(dev)]
+        out = io.StringIO()
+        step_lib.train_step = observed
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = vbr.main(argv)
+        finally:
+            step_lib.train_step = real_step
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        log = out.getvalue()
+        sys.stderr.write(log)
+        with open(report_path) as fp:
+            report = json.load(fp)
+        ckpts = sorted(os.path.basename(p) for p in glob.glob(os.path.join(root, "state_ckpt_*")))
+        state = checkpoint.load_checkpoint(state_path, device=dev)
+    args = vbr.parse_args(argv)
+    numbers = {k: v for k, v in report.items() if k not in ("nan_at", "args")}
+    n_init = args.n_gauss + vbr.wall_side(args) ** 2
+    if rc not in (0, 1) or list(report) != RECOVERY_REPORT_KEYS or report["nan_at"] is not None:
+        raise AssertionError(f"recovery: rc {rc}, keys {list(report)}, nan_at {report['nan_at']}")
+    if not all(isinstance(v, (bool, int)) or (v is not None and math.isfinite(v))
+               for v in numbers.values()):
+        raise AssertionError(f"recovery: a non-finite number in {numbers}")
+    if report["overflow_steps"] != 0:
+        raise AssertionError(f"recovery: {report['overflow_steps']} overflowed steps")
+    if not events or sum(e["n_cloned"] + e["n_split"] for e in events) == 0:
+        raise AssertionError(f"recovery: no densification grew the scene: {events}")
+    if report["final_points"] == n_init:
+        raise AssertionError(f"recovery: the scene kept its initial {n_init} points")
+    if ckpts != ["state_ckpt_400.npz", "state_ckpt_600.npz"]:
+        raise AssertionError(f"recovery: checkpoints kept {ckpts}")
+    want = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 1}
+    if any(launches[k] < n for k, n in want.items()) or launches["K2"] != args.iters \
+            or launches["K6"] != args.pose_refine_iters * args.n_cams:
+        raise AssertionError(f"recovery launches: {launches}")
+    train_s = float(re.search(r"^train (\S+) s;", log, re.M).group(1))
+    pairs, budget = map(int, re.search(r"largest pair list (\d+) of a budget of (\d+)",
+                                       log).groups())
+
+    # ---- the kernels on the final state: one train step, one refinement step
+    with contextlib.redirect_stdout(io.StringIO()):
+        truth = vbr.build_truth(args, vbr.make_draws(args), dev)
+        truth = vbr.synthesize(args, truth, vbr.EvalRenderer(truth))
+    ocfg = vbr.optimization_config(args)
+    st = vbr.train_statics(args, truth, ocfg, *vbr.statics_key(args, truth, ocfg, state.step))
+    cam = vbr.step_cameras(args, state.step)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    k = step_kernel_inputs(torch, st, state, truth.blur_gts[cam], bg, cam, truth.proj)
+    err_k3 = check_k3(torch, "recovery", cuda_blend.broadcast_fields(
+        k["compact"].ctable, k["compact"].gauss_c), k["compact"])
+    err_k1 = check_k1(torch, "recovery", k["bcfg"], k["staged"], (k["C"], k["D"], k["T"],
+                                                                  k["n_con"]))
+    kargs = (bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
+    pg = cuda_blend_mixed.backward_mixed(k["bcfg"], k["staged"], *kargs)
+    err_k2 = check_k2(torch, "recovery", k["bcfg"], k["staged"], *kargs, pg)
+    err_k4 = check_k4(torch, "recovery", k["staged"], pg, k["P"])
+    err_k5, err_k6, refine_pairs = recovery_refine_check(torch, truth, state)
+    emit("recovery", flags=" ".join(RECOVERY_FLAGS), rc=rc, seconds=round(seconds, 3),
+         predicted_seconds_at_most=60, train_s=train_s,
+         ms_per_step=round(1000 * train_s / args.iters, 3), launches=launches,
+         densify_events=events, checkpoints_kept=ckpts, eval_max_num_pairs=pairs,
+         eval_max_pairs=budget, refine_view_pairs=refine_pairs,
+         check_step=state.step, check_pairs=int(k["staged"].total),
+         report={k: v for k, v in report.items() if k != "args"},
+         err_k1=err_k1, err_k2=err_k2, err_k3=err_k3, err_k4=err_k4, err_k5=err_k5,
+         err_k6=err_k6)
+    return {"K1": err_k1, "K2": err_k2[1], "K3": err_k3, "K4": err_k4[1], "K5": err_k5,
+            "K6": err_k6}
+
+
+# ---------------------------------------------------------------------------
 # parallel: the port's parallel/ on one card
 # ---------------------------------------------------------------------------
 
@@ -3355,6 +3527,9 @@ def main() -> int:
     phase_backends(torch, dev)
     torch.cuda.empty_cache()
     for key, err in phase_parallel(torch, dev, train_step_ms).items():
+        cli_errs[key] = max(cli_errs.get(key, 0.0), err)
+    torch.cuda.empty_cache()
+    for key, err in phase_recovery(torch, dev).items():
         cli_errs[key] = max(cli_errs.get(key, 0.0), err)
     for entry in kernels:
         key = entry["name"].split()[0]

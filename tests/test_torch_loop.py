@@ -339,7 +339,8 @@ def test_checkpoint_resume_continues_from_its_step(source, tmp_path):
 
 def test_validate_blur_recovery_runs(tmp_path):
     """The port's motion-recovery check runs end to end at 32 px (a few
-    iterations: it runs, it does not recover yet) and writes its report."""
+    iterations: it runs, it does not recover yet) and writes its report;
+    so does its joint arm."""
     import json
 
     from deblurgs_tpu_torch.scripts import validate_blur_recovery as vbr
@@ -353,5 +354,14 @@ def test_validate_blur_recovery_runs(tmp_path):
         result = json.load(f)
     assert rc in (0, 1) and result["nan_at"] is None and result["overflow_steps"] == 0
     assert np.isfinite(result["traj_err"]) and np.isfinite(result["blur_floor_psnr"])
-    with pytest.raises(NotImplementedError, match="freeze_scene"):
-        vbr.main(["--iters", "1", "--device", "cpu"])
+    # the joint arm at the same size: noisy points, curves from the nominal poses
+    joint = str(tmp_path / "joint.json")
+    rc = vbr.main(["--iters", "3", "--size", "32", "--n_cams", "2", "--n_sub", "3",
+                   "--curve_start", "1", "--batched", "--layout", "mixed", "--tile", "16",
+                   "--max_pairs", str(1 << 14), "--true_scale", "0.1", "--device", "cpu",
+                   "--report", joint])
+    with open(joint) as f:
+        result = json.load(f)
+    assert rc in (0, 1) and result["nan_at"] is None and result["overflow_steps"] == 0
+    assert all(np.isfinite(result[k]) for k in ("sharp_psnr", "sharp_psnr_midcam", "traj_err",
+                                                 "traj_err_aligned", "blur_floor_psnr"))
