@@ -148,6 +148,16 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               point count, the newest two checkpoints kept; then K1-K4 on one train step of the final
               state and K5, K6 on one refinement step against their plain
               versions, every tile, bit for bit.
+17. r5_jax_scene  the r5 protocol's scene from JAX's own draws
+              (``runs/r5_jax_draws.npz``) at the joint arm's arguments,
+              synthesised through ``EvalRenderer``, and JAX's trained joint
+              state (``runs/r5_jointb_state.npz``) evaluated by
+              ``evaluate_state``, the launch counters zeroed just before and
+              read just after: the blur floor within 1e-3 dB, the state's
+              sharp PSNRs within 1e-2 dB and the four trajectory errors within
+              rtol 1e-5 + atol 2e-6 of JAX's report (``runs/r5_jointb.json``),
+              each gap on its own line; K3, K1 and K5 on one view of the state
+              against their plain versions, bit for bit.
 
 Each phase prints one JSON line; any failure raises. The line before the
 last lists every ported kernel; the last line is
@@ -3047,6 +3057,116 @@ def phase_recovery(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# r5_jax_scene: JAX's r5 scene and JAX's trained r5 state, evaluated
+# ---------------------------------------------------------------------------
+
+R5_JAX_DRAWS = os.path.join("runs", "r5_jax_draws.npz")
+R5_JAX_STATE = os.path.join("runs", "r5_jointb_state.npz")
+R5_JAX_REPORT = os.path.join("runs", "r5_jointb.json")     # JAX's report of that state
+R5_PSNR_DB = {"blur_floor_psnr": 1e-3,     # tests/test_torch_recovery.py at 32 px
+              # JAX's TPU composite sits up to ~1e-3 a pixel from float64 on
+              # deep lists (tests/test_torch_weights.py)
+              "sharp_psnr": 1e-2, "sharp_psnr_midcam": 1e-2}
+R5_TRAJ_KEYS = ("traj_err_init", "traj_err_aligned_init", "traj_err", "traj_err_aligned")
+R5_TRAJ_RTOL, R5_TRAJ_ATOL = 1e-5, 2e-6   # tests/test_torch_recovery.py's TRAJ_ATOL
+
+
+def phase_r5_jax_scene(torch, dev) -> dict:
+    """The r5 protocol's scene built from JAX's own draws
+    (``runs/r5_jax_draws.npz``) at the joint arm's arguments (256², 12
+    cameras, F = 21, ``--gt_oversample 1``, 2^21 slots, tile 32, mixed) and
+    synthesised through ``EvalRenderer``, then JAX's trained joint state
+    (``runs/r5_jointb_state.npz``, loaded with ``weights.from_jax_arrays``)
+    evaluated by ``evaluate_state``, the launch counters zeroed just before
+    the synthesis and read just after the evaluation. Every number is held
+    to JAX's report of that state (``runs/r5_jointb.json``): the blur floor
+    within 1e-3 dB, the sharp PSNRs within 1e-2 dB, the four trajectory
+    errors within rtol 1e-5 + atol 2e-6; each gap printed on its own line.
+    Then K3 and K1, the kernels these single-view renders launch (layout
+    mixed), and K5 on the same list, against their plain versions on one
+    view of the state, every tile, bit for bit (K5 also against K1).
+    Returns the kernels' largest errors."""
+    import contextlib
+    import io
+
+    from deblurgs_tpu_torch import weights
+    from deblurgs_tpu_torch.models import gaussians as gm
+    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep as cbl, cuda_blend_mixed
+    from deblurgs_tpu_torch.scripts import recovery_protocol as rp
+    from deblurgs_tpu_torch.scripts import validate_blur_recovery as vbr
+
+    args = vbr.parse_args(rp.ARMS["joint"][1] + ["--device", str(dev)])
+    draws = vbr.load_draws(os.path.join(REPO, R5_JAX_DRAWS))
+    with open(os.path.join(REPO, R5_JAX_REPORT)) as fp:
+        want = json.load(fp)
+    with np.load(os.path.join(REPO, R5_JAX_STATE)) as d:
+        flat_state = {k: np.array(d[k]) for k in d.files
+                      if k.startswith(("params/", "motion/", "aux/active"))}
+    gaussians, motion, active = weights.from_jax_arrays(flat_state, device=dev)
+    params = gm.GaussianParams(*(getattr(gaussians, k).detach() for k in gm.GaussianParams._fields))
+    motion = motion.params()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        truth = vbr.build_truth(args, draws, dev)
+        render_with = vbr.EvalRenderer(truth)
+        truth = vbr.synthesize(args, truth, render_with)
+        t_synth = time.perf_counter() - t0
+        motion0 = vbr.init_arm(args, draws, truth)[2]
+        got = vbr.evaluate_state(args, truth, render_with, params, active, motion, motion0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    got["blur_floor_psnr"] = truth.blur_floor
+
+    gaps, missed = {}, []
+    for key in ("blur_floor_psnr", "sharp_psnr", "sharp_psnr_midcam") + R5_TRAJ_KEYS:
+        gap = abs(got[key] - want[key])
+        bound = (R5_PSNR_DB[key] if key in R5_PSNR_DB
+                 else R5_TRAJ_ATOL + R5_TRAJ_RTOL * abs(want[key]))
+        gaps[key] = gap
+        print(f"r5_jax_scene {key}: port {got[key]!r} jax {want[key]!r} gap {gap:.3e} "
+              f"bound {bound:.3e}", flush=True)
+        if not gap <= bound:
+            missed.append(f"{key} by {gap - bound:.3e}")
+    n_renders = args.n_cams * (args.n_sub * args.gt_oversample + 1) + 2 * args.n_cams
+    want_launches = {"K3": n_renders, "K1": n_renders, "K2": 0, "K4": 0, "K5": 0, "K6": 0}
+
+    # ---- K3, K1 and K5 on one view of JAX's state: camera 0's learned mid camera
+    with torch.no_grad():
+        cam = vbr.learned_mid_cam(truth, motion, 0)
+        bcfg = truth.rcfg_eval.blend_config(truth.cs)
+        flat = flat_preprocess((gm.render_inputs(params, truth.gcfg), 2),
+                               type(cam)(*(x[None] for x in cam)), truth.cs, truth.rcfg_eval,
+                               active)
+        c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
+        fslot = cuda_blend.broadcast_fields(c.ctable, c.gauss_c)
+        err_k3 = check_k3(torch, "r5_jax_scene", fslot, c)
+        staged = cuda_blend.sort_slots(bcfg, fslot, c)
+        if int(staged.total) > bcfg.max_pairs:
+            raise AssertionError("r5_jax_scene: the checked view overflows its pair budget")
+        k1 = cuda_blend_mixed.forward_mixed(bcfg, staged)
+        err_k1 = check_k1(torch, "r5_jax_scene", bcfg, staged, k1)
+        k5 = cbl.forward_lockstep(bcfg, staged)
+        err_k5 = check_k5(torch, "r5_jax_scene", bcfg, staged, k5)
+        if not all(torch.equal(a, b) for a, b in zip(k1, k5)):
+            raise AssertionError("r5_jax_scene: K5 differs from K1 on the same list")
+    emit("r5_jax_scene", draws=R5_JAX_DRAWS, state=R5_JAX_STATE, jax_report=R5_JAX_REPORT,
+         flags=" ".join(rp.ARMS["joint"][1]), seconds=round(seconds, 3),
+         synthesis_s=round(t_synth, 3), launches=launches, predicted_launches=want_launches,
+         port={k: got[k] for k in gaps}, jax={k: want[k] for k in gaps}, gaps=gaps,
+         eval_max_num_pairs=render_with.max_num_pairs, eval_max_pairs=truth.rcfg_eval.max_pairs,
+         checked_view_pairs=int(staged.total), gaussians_active=int(active.sum()),
+         err_k1=err_k1, err_k3=err_k3, err_k5=err_k5)
+    if missed:
+        raise AssertionError(f"r5_jax_scene: JAX's report missed: {', '.join(missed)}")
+    if launches["K3"] < 1 or launches["K1"] < 1:
+        raise AssertionError(f"r5_jax_scene launches: {launches}")
+    return {"K1": err_k1, "K3": err_k3, "K5": err_k5}
+
+
+# ---------------------------------------------------------------------------
 # parallel: the port's parallel/ on one card
 # ---------------------------------------------------------------------------
 
@@ -3530,6 +3650,8 @@ def main() -> int:
         cli_errs[key] = max(cli_errs.get(key, 0.0), err)
     torch.cuda.empty_cache()
     for key, err in phase_recovery(torch, dev).items():
+        cli_errs[key] = max(cli_errs.get(key, 0.0), err)
+    for key, err in phase_r5_jax_scene(torch, dev).items():
         cli_errs[key] = max(cli_errs.get(key, 0.0), err)
     for entry in kernels:
         key = entry["name"].split()[0]

@@ -23,8 +23,15 @@ pose-refined sharp PSNRs.
         [--arms nocurve,oracle,joint] [--device cuda] [--seed 0]
 
 An arm whose report already exists in ``--out_dir`` is not run again, as
-in the shell scripts. Reports: ``torch_r5_cal3b_{nocurve,oracle}.json``
-and ``torch_r5_jointb.json``, each with its log beside it; the joint arm's
+in the shell scripts. On JAX's own r5 scene (its draws committed as
+``runs/r5_jax_draws.npz``; the arms' per-step draws stay torch's)::
+
+    from deblurgs_tpu_torch.scripts import recovery_protocol, validate_blur_recovery
+    draws = validate_blur_recovery.load_draws("runs/r5_jax_draws.npz")
+    recovery_protocol.main(["--out_dir", "runs/torch_r5_jaxscene"], draws=draws)
+
+Reports: ``torch_r5_cal3b_{nocurve,oracle}.json`` and
+``torch_r5_jointb.json``, each with its log beside it; the joint arm's
 final state ``torch_r5_jointb_state.npz`` (and its two newest
 checkpoints). Exit code 0 when every check of the arms present passes; 2
 on a NaN abort, 3 on a missing report, 4 when the calibration does not
@@ -101,10 +108,11 @@ def card() -> str:
         return "not measured (no nvidia-smi)"
 
 
-def run_arm(name: str, out_dir: str, device: str, seed: int) -> int:
-    """Run one arm into ``out_dir`` (its output into the arm's log); print
-    the log's summary lines and the arm's seconds. Returns the arm's exit
-    code, or 3 when it wrote no report."""
+def run_arm(name: str, out_dir: str, device: str, seed: int, draws: dict | None = None) -> int:
+    """Run one arm into ``out_dir`` (its output into the arm's log) on
+    ``draws`` (default: the arm's own from ``seed``); print the log's
+    summary lines and the arm's seconds. Returns the arm's exit code, or 3
+    when it wrote no report."""
     stem, flags = ARMS[name]
     report = os.path.join(out_dir, stem + ".json")
     flags = flags + ["--report", report, "--device", device, "--seed", str(seed)]
@@ -114,7 +122,7 @@ def run_arm(name: str, out_dir: str, device: str, seed: int) -> int:
     print(f"=== {name}", flush=True)
     t0 = time.time()
     with open(log, "w") as fp, contextlib.redirect_stdout(fp):
-        rc = vbr.main(flags)
+        rc = vbr.main(flags, draws=draws)
     seconds = time.time() - t0
     with open(log) as fp:
         for line in [ln.rstrip() for ln in fp if any(k in ln for k in LOG_KEYS)][-4:]:
@@ -128,7 +136,10 @@ def run_arm(name: str, out_dir: str, device: str, seed: int) -> int:
     return rc
 
 
-def main(argv=None) -> int:
+def main(argv=None, draws: dict | None = None) -> int:
+    """Run the arms and their checks; ``draws`` (as
+    ``validate_blur_recovery.load_draws`` returns them) replaces every arm's
+    own scene draws."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--out_dir", type=str, default="runs")
     ap.add_argument("--arms", type=str, default="nocurve,oracle,joint",
@@ -143,7 +154,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"unknown arm {name!r} (expected one of {sorted(ARMS)})")
         if os.path.exists(os.path.join(args.out_dir, ARMS[name][0] + ".json")):
             continue
-        rc = run_arm(name, args.out_dir, args.device, args.seed)
+        rc = run_arm(name, args.out_dir, args.device, args.seed, draws)
         if rc in (2, 3):
             return rc
     reports = {}

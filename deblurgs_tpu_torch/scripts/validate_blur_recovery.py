@@ -148,6 +148,10 @@ def wall_side(args) -> int:
     return int(math.ceil(math.sqrt(args.n_gauss // 2)))
 
 
+DRAW_KEYS = ("fg", "colors", "sweep_dir", "rot_sweep", "point_noise", "curve_rot",
+             "curve_trans")
+
+
 def make_draws(args) -> dict:
     """Every random draw of a run, as float32 numpy arrays named by their
     use (JAX's key in ``jax.random.split(PRNGKey(seed), 8)``)."""
@@ -164,6 +168,25 @@ def make_draws(args) -> dict:
         "curve_trans": rng.standard_normal(ctrl),                    # ks[6] (its second half)
     }
     return {k: v.astype(np.float32) for k, v in draws.items()}
+
+
+def load_draws(path: str) -> dict:
+    """A run's draws from an ``.npz`` with :data:`DRAW_KEYS` (float32), to
+    pass to :func:`main` in place of :func:`make_draws`'s: JAX's r5 draws
+    are committed as ``runs/r5_jax_draws.npz``."""
+    with np.load(path) as d:
+        missing = sorted(set(DRAW_KEYS) - set(d.files))
+        if missing:
+            raise KeyError(f"{path}: no draws {missing}")
+        return {k: np.asarray(d[k], np.float32) for k in DRAW_KEYS}
+
+
+def check_draws(args, draws: dict) -> None:
+    """Raise ValueError unless ``draws`` has the shapes ``args`` draws."""
+    want = {k: v.shape for k, v in make_draws(args).items()}
+    got = {k: np.shape(draws.get(k)) for k in DRAW_KEYS}
+    if got != want:
+        raise ValueError(f"draws of shapes {got} do not fit the arguments' {want}")
 
 
 class Truth(NamedTuple):
@@ -404,9 +427,9 @@ def traj_error(motion, true_motion, mcfg, align_gauge=False) -> float:
     return float(np.mean([_chamfer(f32(a), f32(b)) for a, b in zip(c_l, c_t)]))
 
 
-def state_finite(state) -> bool:
+def state_finite(params, motion) -> bool:
     """Every Gaussian and curve leaf finite (one sync)."""
-    leaves = tuple(state.params) + tuple(state.motion)
+    leaves = tuple(params) + tuple(motion)
     return bool(torch.stack([torch.isfinite(x).all() for x in leaves]).all())
 
 
@@ -457,6 +480,62 @@ def refine_pose(render_pose, cam0, gt: torch.Tensor, iters: int) -> float:
         return float(psnr(torch.clamp(render_pose(pose), 0, 1), torch.clamp(gt, 0, 1)))
 
 
+def learned_mid_cam(truth: Truth, motion, i: int):
+    """The learned curve's mid-exposure (ν = 0.5) camera of view ``i``: the
+    reference's render_trainview protocol, gauge-invariant."""
+    return one(motion_lib.subframe_cameras_batch(
+        motion, [i], torch.full((1, 1), 0.5, device=truth.dev), truth.proj, truth.mcfg), 0)
+
+
+def sharp_psnr(truth: Truth, render_with, params, active, motion,
+               learned_mid: bool = False) -> float:
+    """Mean PSNR of the views against the sharp truth (each clipped to [0,
+    1]), rendered at the true mid-trajectory poses or (``learned_mid``) at
+    the learned curves' mid-exposure cameras; NaN for a non-finite state."""
+    if not state_finite(params, motion):
+        return float("nan")
+    clip = lambda x: torch.clamp(x, 0, 1)   # noqa: E731
+    with torch.no_grad():
+        cams = ([learned_mid_cam(truth, motion, i) for i in range(len(truth.mid_cams))]
+                if learned_mid else truth.mid_cams)
+        return float(np.mean([float(psnr(clip(render_with(params, active, cam)),
+                                         clip(truth.sharp_gts[i])))
+                              for i, cam in enumerate(cams)]))
+
+
+def evaluate_state(args, truth: Truth, render_with, params, active, motion, motion0,
+                   refine: bool = True) -> dict:
+    """The final evaluation of a state (Gaussian ``params``, ``active``
+    mask, learned curves ``motion``; ``motion0`` the arm's initial curves):
+    the sharp PSNRs at the true and the learned mid-exposure cameras, the
+    pose-refined PSNR (``--pose_refine_iters`` > 0 and ``refine``, else
+    None) and the trajectory errors with and without gauge alignment, at
+    the end and at ``motion0``, under the report's keys."""
+    sharp = sharp_psnr(truth, render_with, params, active, motion)
+    mid = sharp_psnr(truth, render_with, params, active, motion, learned_mid=True)
+    refined = None
+    if args.pose_refine_iters > 0 and refine:
+        # the reference's eval protocol: refine each pose photometrically from
+        # the learned mid-exposure camera (already in the learned gauge)
+        with torch.no_grad():
+            rin = gm.render_inputs(params, truth.gcfg)
+            cams0 = [learned_mid_cam(truth, motion, i) for i in range(args.n_cams)]
+
+        def render_pose(pose):
+            return render_with.render_inputs(rin, active, pose_camera(pose, truth.proj))
+
+        refined = float(np.mean([refine_pose(render_pose, cams0[i], truth.sharp_gts[i],
+                                             args.pose_refine_iters)
+                                 for i in range(args.n_cams)]))
+        print(f"pose-refined sharp PSNR: {refined:.2f} dB")
+    mcfg = truth.mcfg
+    return {"sharp_psnr": sharp, "sharp_psnr_midcam": mid, "sharp_psnr_pose_refined": refined,
+            "traj_err": traj_error(motion, truth.motion, mcfg),
+            "traj_err_aligned": traj_error(motion, truth.motion, mcfg, align_gauge=True),
+            "traj_err_init": traj_error(motion0, truth.motion, mcfg),
+            "traj_err_aligned_init": traj_error(motion0, truth.motion, mcfg, align_gauge=True)}
+
+
 def _json_value(x):
     """NaN is not valid JSON: written as null."""
     return None if isinstance(x, float) and not math.isfinite(x) else x
@@ -466,45 +545,28 @@ def main(argv=None, draws: dict | None = None) -> int:
     """Run one arm; ``draws`` replaces :func:`make_draws` (same keys)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    draws = make_draws(args) if draws is None else draws
+    if draws is None:
+        draws = make_draws(args)
+    else:
+        check_draws(args, draws)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     truth = build_truth(args, draws, dev)
     render_with = EvalRenderer(truth)
-    mcfg, proj, n_cams = truth.mcfg, truth.proj, args.n_cams
+    mcfg, proj = truth.mcfg, truth.proj
 
     print("synthesizing ground truth...")
     truth = synthesize(args, truth, render_with)
-    blur_gts, sharp_gts = truth.blur_gts, truth.sharp_gts
+    blur_gts = truth.blur_gts
     print(f"  synthesis done; blur-vs-sharp floor {truth.blur_floor:.2f} dB", flush=True)
 
     params, aux, motion0 = init_arm(args, draws, truth)
     ocfg = optimization_config(args)
     state = step_lib.init_state(params, motion0, aux)
-    clip = lambda x: torch.clamp(x, 0, 1)   # noqa: E731
 
-    def sharp_psnr(st) -> float:
-        if not state_finite(st):
-            return float("nan")
-        with torch.no_grad():
-            return float(np.mean([float(psnr(clip(render_with(st.params, st.aux.active,
-                                                              truth.mid_cams[i])),
-                                             clip(sharp_gts[i]))) for i in range(n_cams)]))
+    def progress_psnr(st, learned_mid=False) -> float:
+        return sharp_psnr(truth, render_with, st.params, st.aux.active, st.motion, learned_mid)
 
-    def learned_mid_cam(motion, i):
-        """The learned curve's mid-exposure (ν = 0.5) camera: the
-        reference's render_trainview protocol, gauge-invariant."""
-        return one(motion_lib.subframe_cameras_batch(
-            motion, [i], torch.full((1, 1), 0.5, device=dev), proj, mcfg), 0)
-
-    def sharp_mid_psnr(st) -> float:
-        if not state_finite(st):
-            return float("nan")
-        with torch.no_grad():
-            return float(np.mean([float(psnr(clip(render_with(st.params, st.aux.active,
-                                                              learned_mid_cam(st.motion, i))),
-                                             clip(sharp_gts[i]))) for i in range(n_cams)]))
-
-    print(f"sharp PSNR at init: {sharp_psnr(state):.2f} dB")
+    print(f"sharp PSNR at init: {progress_psnr(state):.2f} dB")
     statics = {}
     base = args.save_state or args.report or "runs/validate"
     ckpt_stem = os.path.splitext(base)[0] + "_ckpt" if args.ckpt_every > 0 else None
@@ -528,7 +590,8 @@ def main(argv=None, draws: dict | None = None) -> int:
                     os.remove(old)
         if it % 200 == 0 or it == args.iters:
             # a poisoned state aborts with a dump, not hours of training garbage
-            if not math.isfinite(float(metrics.loss)) or not state_finite(state):
+            if (not math.isfinite(float(metrics.loss))
+                    or not state_finite(state.params, state.motion)):
                 nan_at = it
                 dump = os.path.splitext(base)[0] + f"_nanstate_it{it}.npz"
                 ckpt_lib.save_checkpoint(dump, state)
@@ -537,34 +600,20 @@ def main(argv=None, draws: dict | None = None) -> int:
                       flush=True)
                 break
             print(f"it {it}: blur-l1={float(metrics.l1):.4f} "
-                  f"psnr(blur)={float(metrics.psnr):.2f} sharp-psnr={sharp_psnr(state):.2f} "
-                  f"sharp-mid={sharp_mid_psnr(state):.2f} "
+                  f"psnr(blur)={float(metrics.psnr):.2f} sharp-psnr={progress_psnr(state):.2f} "
+                  f"sharp-mid={progress_psnr(state, learned_mid=True):.2f} "
                   f"curve-trans-err={traj_error(state.motion, truth.motion, mcfg):.4f} "
                   f"#pts={int(metrics.num_active)} ({time.time() - t0:.0f}s)", flush=True)
     train_s = time.time() - t0
 
-    final_sharp, final_mid = sharp_psnr(state), sharp_mid_psnr(state)
-    refined_sharp = None
-    if args.pose_refine_iters > 0 and nan_at is None:
-        # the reference's eval protocol: refine each pose photometrically from
-        # the learned mid-exposure camera (already in the learned gauge)
-        with torch.no_grad():
-            rin = gm.render_inputs(state.params, truth.gcfg)
-            cams0 = [learned_mid_cam(state.motion, i) for i in range(n_cams)]
-
-        def render_pose(pose):
-            return render_with.render_inputs(rin, state.aux.active, pose_camera(pose, proj))
-
-        refined_sharp = float(np.mean([refine_pose(render_pose, cams0[i], sharp_gts[i],
-                                                   args.pose_refine_iters)
-                                       for i in range(n_cams)]))
-        print(f"pose-refined sharp PSNR: {refined_sharp:.2f} dB")
+    ev = evaluate_state(args, truth, render_with, state.params, state.aux.active, state.motion,
+                        motion0, refine=nan_at is None)
     if args.save_state:
         ckpt_lib.save_checkpoint(args.save_state, state)
-    tr_err = traj_error(state.motion, truth.motion, mcfg)
-    tr_err_al = traj_error(state.motion, truth.motion, mcfg, align_gauge=True)
-    init_err = traj_error(motion0, truth.motion, mcfg)
-    init_err_al = traj_error(motion0, truth.motion, mcfg, align_gauge=True)
+    final_sharp, final_mid, refined_sharp = (ev["sharp_psnr"], ev["sharp_psnr_midcam"],
+                                             ev["sharp_psnr_pose_refined"])
+    tr_err, tr_err_al = ev["traj_err"], ev["traj_err_aligned"]
+    init_err, init_err_al = ev["traj_err_init"], ev["traj_err_aligned_init"]
     n_overflow = int(state.overflow_count)
     print(f"train {train_s:.1f} s; eval renders: largest pair list "
           f"{render_with.max_num_pairs} of a budget of {truth.rcfg_eval.max_pairs}")

@@ -9,12 +9,14 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from deblurgs_tpu.core import camera as jcam
 from deblurgs_tpu_torch.core import camera as tcam
+from deblurgs_tpu_torch.scripts import validate_blur_recovery as vbr
 
 
 def rodrigues(v: np.ndarray) -> np.ndarray:
@@ -150,3 +152,22 @@ def np_of(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def jax_draws(args) -> dict:
+    """The draws of JAX's ``scripts/validate_blur_recovery.py`` at ``args``
+    (``jax.random.split(PRNGKey(seed), 8)``; the curve noise from the two
+    halves of ``ks[6]``, as ``init_motion`` splits it) under the names of
+    the port's ``make_draws``."""
+    ks = jax.random.split(jax.random.PRNGKey(args.seed), 8)
+    k_rot, k_trans = jax.random.split(ks[6])
+    n_pts = args.n_gauss + vbr.wall_side(args) ** 2
+    ctrl = (args.n_cams, vbr.CURVE_ORDER + 1, 3)
+    draws = dict(
+        fg=jax.random.normal(ks[0], (args.n_gauss, 3)),
+        colors=jax.random.uniform(ks[1], (n_pts, 3), minval=0.05, maxval=0.95),
+        sweep_dir=jax.random.normal(ks[3], (args.n_cams, 1, 3)),
+        rot_sweep=jax.random.normal(ks[4], (args.n_cams, 1, 3)),
+        point_noise=jax.random.normal(ks[5], (n_pts, 3)),
+        curve_rot=jax.random.normal(k_rot, ctrl), curve_trans=jax.random.normal(k_trans, ctrl))
+    return {k: np.asarray(v, np.float32) for k, v in draws.items()}
