@@ -605,23 +605,16 @@ def device_profile(torch, fn, top: int = 12, calls: int = 1) -> dict:
 
 
 def zero_counts() -> None:
-    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
+    from deblurgs_tpu_torch.utils import profiling
 
-    for fn in (cuda_blend.broadcast_fields, cuda_blend_mixed.forward_mixed,
-               cuda_blend_mixed.backward_mixed, cuda_blend.reduce_sorted,
-               cuda_blend_lockstep.forward_lockstep, cuda_blend_lockstep.backward_lockstep):
-        fn.launches = 0
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:
-    from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
+    from deblurgs_tpu_torch.utils import profiling
 
-    return {"K3": cuda_blend.broadcast_fields.launches,
-            "K1": cuda_blend_mixed.forward_mixed.launches,
-            "K2": cuda_blend_mixed.backward_mixed.launches,
-            "K4": cuda_blend.reduce_sorted.launches,
-            "K5": cuda_blend_lockstep.forward_lockstep.launches,
-            "K6": cuda_blend_lockstep.backward_lockstep.launches}
+    c = profiling.counters()
+    return {k: c.get(f"kernel.{k}", 0) for k in ("K3", "K1", "K2", "K4", "K5", "K6")}
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ import torch
 
 from deblurgs_tpu_torch.ops import binning as binning_lib
 from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
+from deblurgs_tpu_torch.utils import profiling
 
 NFIELD = 16
 # field rows: 0 x, 1 y, 2 conic_a, 3 conic_b, 4 conic_c, 5 opacity,
@@ -96,11 +97,8 @@ def broadcast_fields(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tenso
     load_library().launch(
         "deblurgs_broadcast_fields", ctable.data_ptr(), gauss_c.data_ptr(),
         out.data_ptr(), ctable.shape[0], max_pairs, stream_ptr(ctable.device))
-    broadcast_fields.launches += 1
+    profiling.count("kernel.K3")
     return out
-
-
-broadcast_fields.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +295,14 @@ def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
     (``pallas_blend.py:393-395``)."""
     if cfg.layout == "lockstep" and cfg.n_images > 1:
         raise NotImplementedError("batched multi-view rendering requires layout='mixed'")
-    c = compact_table(cfg, means2d, conic, opacity, color, depth, rect, area, max_pairs)
-    return sort_slots(cfg, broadcast_fields(c.ctable, c.gauss_c), c)
+    with profiling.span("render.staging"):
+        with profiling.span("staging.compact"):
+            c = compact_table(cfg, means2d, conic, opacity, color, depth, rect, area, max_pairs)
+        with profiling.span("staging.broadcast"):
+            fslot = broadcast_fields(c.ctable, c.gauss_c)
+        with profiling.span("staging.sort"):
+            profiling.count("staging.slots", max_pairs)
+            return sort_slots(cfg, fslot, c)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +343,7 @@ def _launch_reduce(rows, idx, seg, ids, n_ranks: int, out) -> None:
         "deblurgs_reduce_sorted", rows.data_ptr(), idx.data_ptr(), seg.data_ptr(),
         None if ids is None else ids.data_ptr(), n_ranks, out.data_ptr(),
         stream_ptr(rows.device))
-    reduce_sorted.launches += 1
+    profiling.count("kernel.K4")
 
 
 def reduce_sorted(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch.Tensor:
@@ -367,9 +371,6 @@ def reduce_sorted(pair_grads: torch.Tensor, s_gc: torch.Tensor, P: int) -> torch
     out = torch.zeros((P, NFIELD), dtype=torch.float32, device=dev)
     _launch_reduce(rows, perm.to(torch.int32), seg, None, P, out)
     return out
-
-
-reduce_sorted.launches = 0
 
 
 def reduce_pair_grads_ref(staged: Staged, pair_grads: torch.Tensor, P: int) -> torch.Tensor:

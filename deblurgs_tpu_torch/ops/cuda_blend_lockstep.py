@@ -11,7 +11,8 @@ on the view's tiles, in their pixel layouts, with the warp cull on the
 uncut lists that evaluation stages (``need_n_contrib`` on). Their plain
 versions are K1's and K2's (``cuda_blend_mixed.forward_ref``,
 ``backward_ref``), and each kernel agrees with its plain version bit for
-bit on the card. The launch counters stay their own, so a run can tell the
+bit on the card. The launch counters stay their own (``kernel.K5``,
+``kernel.K6`` of ``utils/profiling.py``), so a run can tell the
 lockstep launches from the mixed ones. K6 writes the slot-major
 [max_pairs, 16] rows K2 writes, the layout K4 reads.
 
@@ -28,6 +29,7 @@ import torch
 from deblurgs_tpu_torch.ops.cuda_blend import Staged
 from deblurgs_tpu_torch.ops.cuda_blend_mixed import (backward_ref, backward_total, forward_ref,
                                                      launch_backward, launch_forward)
+from deblurgs_tpu_torch.utils import profiling
 
 # K5 and K6 compute K1's and K2's functions on one view's tiles, so K1's and
 # K2's plain versions are theirs (lockstep refuses ``fast``).
@@ -49,11 +51,8 @@ def forward_lockstep(cfg, staged: Staged):
         return forward_lockstep_ref(cfg, fields, staged.tile_start, staged.tile_stop)
     _check_one_view("forward_lockstep", cfg)
     out = launch_forward("forward_lockstep", cfg, staged)
-    forward_lockstep.launches += 1
+    profiling.count("kernel.K5")
     return out
-
-
-forward_lockstep.launches = 0
 
 
 def backward_lockstep(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> torch.Tensor:
@@ -73,8 +72,5 @@ def backward_lockstep(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) 
                                      dl_depth, total)
     _check_one_view("backward_lockstep", cfg)
     out = launch_backward("backward_lockstep", cfg, staged, bg, final_T, dl_pix, dl_depth, C, D)
-    backward_lockstep.launches += 1
+    profiling.count("kernel.K6")
     return out
-
-
-backward_lockstep.launches = 0

@@ -37,6 +37,7 @@ import torch
 
 from deblurgs_tpu_torch.ops.cuda_blend import Staged, tile_culled
 from deblurgs_tpu_torch.ops.kernels import load_library, stream_ptr
+from deblurgs_tpu_torch.utils import profiling
 
 _ALPHA_MIN = 1.0 / 255.0
 _T_EPS = 1e-4
@@ -240,11 +241,8 @@ def forward_mixed(cfg, staged: Staged):
     if fields.device.type == "cpu":
         return forward_ref(cfg, fields, staged.tile_start, staged.tile_stop)
     out = launch_forward("forward_mixed", cfg, staged)
-    forward_mixed.launches += 1
+    profiling.count("kernel.K1")
     return out
-
-
-forward_mixed.launches = 0
 
 
 def launch_forward(name: str, cfg, staged: Staged, cull: bool | None = None):
@@ -627,11 +625,8 @@ def backward_mixed(cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D) -> 
         return backward_ref(cfg, fields, staged.tile_start, staged.tile_stop, dl_pix,
                             dl_depth, total)
     out = launch_backward("backward_mixed", cfg, staged, bg, final_T, dl_pix, dl_depth, C, D)
-    backward_mixed.launches += 1
+    profiling.count("kernel.K2")
     return out
-
-
-backward_mixed.launches = 0
 
 
 def launch_backward(name: str, cfg, staged: Staged, bg, final_T, dl_pix, dl_depth, C, D,

@@ -37,6 +37,7 @@ from deblurgs_tpu_torch.ops import binning as binning_lib
 from deblurgs_tpu_torch.ops import oracle as oracle_lib
 from deblurgs_tpu_torch.ops import preprocess as pre_lib
 from deblurgs_tpu_torch.ops import tile_blend
+from deblurgs_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +99,13 @@ def _preprocess(means3d, scales, rotations, opacities, shs, cam, cs, cfg,
                 sh_degree, colors_precomp, active, vsp):
     if means3d.is_cuda:
         full_f32()
-    cov6 = build_covariance(scales, rotations, cfg.scale_modifier)
-    return pre_lib.preprocess(
-        means3d, cov6, shs, colors_precomp, opacities, cam, cs,
-        sh_degree=sh_degree, use_sigmoid=cfg.use_sigmoid,
-        tile_w=cfg.tile_w, tile_h=cfg.tile_h, active=active, vsp=vsp,
-        cull_z=cfg.cull_z, tight_rect=cfg.tight_rect)
+    with span("render.preprocess"):
+        cov6 = build_covariance(scales, rotations, cfg.scale_modifier)
+        return pre_lib.preprocess(
+            means3d, cov6, shs, colors_precomp, opacities, cam, cs,
+            sh_degree=sh_degree, use_sigmoid=cfg.use_sigmoid,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h, active=active, vsp=vsp,
+            cull_z=cfg.cull_z, tight_rect=cfg.tight_rect)
 
 
 def render(
@@ -149,8 +151,9 @@ def render(
             pre.depth, pre.rect, pre.tiles_touched, bg)
     else:
         bcfg = cfg.blend_config(cs)
-        bins = binning_lib.bin_gaussians(pre, tiles_x=bcfg.tiles_x, tiles_y=bcfg.tiles_y,
-                                         max_pairs=cfg.max_pairs)
+        with span("render.staging"):
+            bins = binning_lib.bin_gaussians(pre, tiles_x=bcfg.tiles_x, tiles_y=bcfg.tiles_y,
+                                             max_pairs=cfg.max_pairs)
         image, depth_img, final_T, n_contrib = tile_blend.blend_from_binning(
             bcfg, bins, pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth, bg)
         num_pairs, max_per_tile = bins.num_pairs, bins.max_per_tile

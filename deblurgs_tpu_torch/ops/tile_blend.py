@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_lockstep, cuda_blend_mixed
+from deblurgs_tpu_torch.utils.profiling import span
 
 _ALPHA_MIN = 1.0 / 255.0
 _T_EPS = 1e-4
@@ -160,8 +161,10 @@ class _BlendFused(torch.autograd.Function):
     def forward(ctx, cfg, means2d, conic, opacity, color, depth, rect, area, bg):
         staged = cuda_blend.sort_stage(cfg, means2d, conic, opacity, color, depth,
                                        rect, area, cfg.max_pairs)
-        C, D, T, n_con = _kernels(cfg.layout)[0](cfg, staged)
-        image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
+        with span("render.composite"):
+            C, D, T, n_con = _kernels(cfg.layout)[0](cfg, staged)
+        with span("render.compose"):
+            image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
         ctx.cfg = cfg
         ctx.staged = staged
         ctx.n_rows = means2d.shape[0]
@@ -171,16 +174,21 @@ class _BlendFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_image, d_depth, _dT, _dn, _dnp, _dmpt):
-        cfg = ctx.cfg
-        T, C, D, bg = ctx.saved_tensors
-        if d_image is None:
-            d_image = torch.zeros_like(C)
-        else:
-            d_image = _images_to_tiles(cfg, d_image)
-        d_depth = torch.zeros_like(D) if d_depth is None else _images_to_tiles(cfg, d_depth)
-        pair_grads = _kernels(cfg.layout)[1](cfg, ctx.staged, bg, T, d_image, d_depth, C, D)
-        sums = cuda_blend.reduce_pair_grads(ctx.staged, pair_grads, ctx.n_rows)
-        dbg = torch.einsum("tp,tpc->c", T, d_image)
+        # autograd runs this on a thread of its own on the card
+        with span("blend.backward"):
+            cfg = ctx.cfg
+            T, C, D, bg = ctx.saved_tensors
+            if d_image is None:
+                d_image = torch.zeros_like(C)
+            else:
+                d_image = _images_to_tiles(cfg, d_image)
+            d_depth = torch.zeros_like(D) if d_depth is None else _images_to_tiles(cfg, d_depth)
+            with span("backward.composite"):
+                pair_grads = _kernels(cfg.layout)[1](cfg, ctx.staged, bg, T, d_image, d_depth,
+                                                     C, D)
+            with span("backward.reduce"):
+                sums = cuda_blend.reduce_pair_grads(ctx.staged, pair_grads, ctx.n_rows)
+            dbg = torch.einsum("tp,tpc->c", T, d_image)
         return (None, sums[:, 0:2], sums[:, 2:5], sums[:, 5], sums[:, 6:9], sums[:, 9],
                 None, None, dbg)
 
@@ -354,10 +362,12 @@ class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, pair_gauss, pair_tile, tile_start, tile_stop, means2d, conic,
                 opacity, color, depth, bg):
-        n_steps = walk_length(cfg, tile_start, tile_stop)
-        C, D, T, n_con = _xla_forward(cfg, pair_gauss, tile_start, tile_stop, means2d, conic,
-                                      opacity, color, depth, n_steps)
-        image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
+        with span("render.composite"):
+            n_steps = walk_length(cfg, tile_start, tile_stop)
+            C, D, T, n_con = _xla_forward(cfg, pair_gauss, tile_start, tile_stop, means2d,
+                                          conic, opacity, color, depth, n_steps)
+        with span("render.compose"):
+            image, depth_img, final_T, n_contrib = compose(cfg, C, D, T, n_con, bg)
         ctx.cfg, ctx.n_steps = cfg, n_steps
         ctx.save_for_backward(pair_gauss, tile_start, tile_stop, means2d, conic, opacity,
                               color, depth, bg, T, n_con)
@@ -372,9 +382,10 @@ class _Blend(torch.autograd.Function):
         d_image = (torch.zeros(T.shape + (3,), dtype=T.dtype, device=T.device)
                    if d_image is None else image_to_tiles(cfg, d_image))
         d_depth = torch.zeros_like(T) if d_depth is None else image_to_tiles(cfg, d_depth)
-        grads = _xla_backward(cfg, pair_gauss, tile_start, tile_stop, means2d, conic,
-                              opacity, color, depth, bg, T, n_con, d_image, d_depth,
-                              ctx.n_steps)
+        with span("blend.backward"), span("backward.composite"):
+            grads = _xla_backward(cfg, pair_gauss, tile_start, tile_stop, means2d, conic,
+                                  opacity, color, depth, bg, T, n_con, d_image, d_depth,
+                                  ctx.n_steps)
         return (None, None, None, None, None) + grads
 
 

@@ -18,7 +18,8 @@ decides everything between steps:
   (:meth:`Trainer.autosize_max_pairs`); on the xla backend ``k_max``
   doubles when a tile's list outgrows it;
 - the saving cadence (PLY snapshots, ``cm.npz``, full checkpoints), the
-  EMA-smoothed log, the visualizer and ``time.txt``.
+  EMA-smoothed log, the visualizer and ``time.txt`` (the wall time of
+  :meth:`Trainer.train`, which ends on a drain's host copy).
 
 Metrics stay on the device between drains: every ``sync_every`` iterations
 (and at a save and the last iteration) the pending metrics are copied to
@@ -61,6 +62,7 @@ from deblurgs_tpu_torch.train import checkpoint as ckpt_lib
 from deblurgs_tpu_torch.train import optim
 from deblurgs_tpu_torch.train import step as step_lib
 from deblurgs_tpu_torch.train.config import OptimizationConfig
+from deblurgs_tpu_torch.utils.profiling import count, span
 
 # the drained scalars of one step's metrics, copied to the host together
 _DRAINED = ("loss", "l1", "t_smooth", "hinge", "psnr", "num_active", "num_pairs",
@@ -189,13 +191,12 @@ class Trainer:
             white_background=getattr(self.scene, "white_background", False), mesh=mesh,
             batched_render=self.batched_render, cams_per_step=self.cams_per_step)
 
-    # -- step cache keyed by the static configuration (JAX's compiled variants)
-    def _get_step(self, sh_degree: int, n_sub: int, random_sample: bool, capacity: int,
-                  rcfg: RasterizeConfig, mesh=None):
+    # -- the step's statics keyed as JAX keys its compiled variants
+    def _get_statics(self, sh_degree: int, n_sub: int, random_sample: bool, capacity: int,
+                     rcfg: RasterizeConfig, mesh=None) -> step_lib.TrainStatics:
         key = (sh_degree, n_sub, random_sample, capacity, rcfg, mesh)
         if key not in self._step_cache:
-            self._step_cache[key] = step_lib.make_train_step(
-                self.statics(sh_degree, n_sub, random_sample, rcfg, mesh))
+            self._step_cache[key] = self.statics(sh_degree, n_sub, random_sample, rcfg, mesh)
         return self._step_cache[key]
 
     def init_state(self, load_path: str | None = None, load_motion_path: str | None = None,
@@ -286,40 +287,18 @@ class Trainer:
               iterations: int | None = None, mesh=None) -> step_lib.TrainState:
         """Train from ``first_iter`` to ``iterations``; ``mesh`` (a sub-frame
         ``parallel.shard.Mesh``) shards each step's views over its ranks."""
+        t_start = time.perf_counter()
         iterations = iterations or self.ocfg.iterations
         if self.rcfg.max_pairs <= 0:
-            self.rcfg = dataclasses.replace(self.rcfg,
-                                            max_pairs=self.autosize_max_pairs(state))
+            with span("train.autosize"):
+                self.rcfg = dataclasses.replace(self.rcfg,
+                                                max_pairs=self.autosize_max_pairs(state))
         rcfg = self.rcfg
         for iteration in range(first_iter, iterations + 1):
-            t0 = time.time()
-            sh_degree, n_sub, random_sample = self.phase_statics(iteration)
-            fn = self._get_step(sh_degree, n_sub, random_sample, state.params.xyz.shape[0],
-                                rcfg, mesh)
-            cam_idx, sel, gt = self._select()
-            draws = self.draws_fn(iteration, state) if self.draws_fn is not None else None
-            state, metrics = fn(state, gt, sel, self._proj, draws=draws,
-                                generator=self.generator)
-            # metrics stay on the device; drained in batches below
-            self._pending.append((iteration, cam_idx, metrics))
-            self.training_time_sec += time.time() - t0
-            if (iteration % self.sync_every == 0 or iteration in self.save_iterations
-                    or iteration == iterations):
-                state, rcfg = self._drain(state, rcfg)
-            if iteration % self.log_every == 0 and self.logger.values:
-                self.logger.show(iteration)
-
-            if self.model_path and iteration in self.save_iterations:
-                self.save_snapshot(state, iteration)
-            if self.model_path and iteration in self.checkpoint_iterations:
-                ckpt_lib.save_checkpoint(
-                    os.path.join(self.model_path, f"chkpnt{iteration}.npz"), state)
-            if self.visualize and self.model_path:
-                self._get_visualizer().run(iteration, state)
-            if self.model_path and iteration in self.render_iterations:
-                self._get_visualizer().traj_render(iteration, state,
-                                                   cam_idx=self.vis_cam_idx or 0)
-                self._get_visualizer().visualize_alignment(iteration, state)
+            with span("train.iteration"):
+                state, rcfg = self._iteration(state, iteration, iterations, rcfg, mesh)
+        # the last iteration drained: its host copy waited for the device
+        self.training_time_sec += time.perf_counter() - t_start
 
         if self.visualize and self._visualizer is not None:
             self._visualizer.save_video()
@@ -332,6 +311,42 @@ class Trainer:
                 print(f"Training Time = {self.training_time_sec:7.5f}sec", file=fp)
                 print(f"Overflowed iterations = {n_overflow}", file=fp)
         return state
+
+    def _iteration(self, state: step_lib.TrainState, iteration: int, iterations: int,
+                   rcfg: RasterizeConfig, mesh):
+        """One iteration of :meth:`train`: the step, the drain on its
+        cadence, the log and the saves."""
+        with span("train.select"):
+            sh_degree, n_sub, random_sample = self.phase_statics(iteration)
+            st = self._get_statics(sh_degree, n_sub, random_sample, state.params.xyz.shape[0],
+                                   rcfg, mesh)
+            cam_idx, sel, gt = self._select()
+        with span("train.draws"):
+            draws = (self.draws_fn(iteration, state) if self.draws_fn is not None
+                     else step_lib.draw_step(state, st, gt.shape, self.generator))
+        with span("train.step"):
+            state, metrics = step_lib.train_step(state, gt, sel, self._proj, st, draws=draws)
+        # metrics stay on the device; drained in batches below
+        self._pending.append((iteration, cam_idx, metrics))
+        if (iteration % self.sync_every == 0 or iteration in self.save_iterations
+                or iteration == iterations):
+            with span("train.drain"):
+                state, rcfg = self._drain(state, rcfg)
+        if iteration % self.log_every == 0 and self.logger.values:
+            self.logger.show(iteration)
+
+        if self.model_path and iteration in self.save_iterations:
+            self.save_snapshot(state, iteration)
+        if self.model_path and iteration in self.checkpoint_iterations:
+            ckpt_lib.save_checkpoint(
+                os.path.join(self.model_path, f"chkpnt{iteration}.npz"), state)
+        if self.visualize and self.model_path:
+            self._get_visualizer().run(iteration, state)
+        if self.model_path and iteration in self.render_iterations:
+            self._get_visualizer().traj_render(iteration, state,
+                                               cam_idx=self.vis_cam_idx or 0)
+            self._get_visualizer().visualize_alignment(iteration, state)
+        return state, rcfg
 
     def _drain(self, state: step_lib.TrainState, rcfg: RasterizeConfig):
         """Copy the pending metrics to the host in one transfer and act on
@@ -356,6 +371,7 @@ class Trainer:
                     f"non-finite loss {vals['loss']} at iteration {it_p} (cam {cam_p}) — "
                     f"state dumped to {snap}")
             num_active, num_pairs = int(vals["num_active"]), int(vals["num_pairs"])
+            count("staging.pairs_emitted", num_pairs)
             # ---- capacity: pre-grow near full while densification can
             # still insert (dropped insertions are lost, not retried); the
             # reactive path catches a burst that outran it, but not twice
@@ -365,12 +381,14 @@ class Trainer:
             if it_p < self.ocfg.densify_until_iter and num_active > 0.9 * cap_now:
                 print(f"[capacity] → {cap_now * 2} (pre-grow: {num_active} active > 90% "
                       f"of {cap_now})")
-                state = grow_capacity(state, cap_now * 2)
+                with span("drain.grow_capacity"):
+                    state = grow_capacity(state, cap_now * 2)
                 grew = True
             if int(vals["n_dropped"]) > 0 and not grew:
                 new_cap = state.params.xyz.shape[0] * 2
                 print(f"[capacity] → {new_cap} (dropped {int(vals['n_dropped'])})")
-                state = grow_capacity(state, new_cap)
+                with span("drain.grow_capacity"):
+                    state = grow_capacity(state, new_cap)
             if vals["overflowed"]:
                 print(f"[pairs] OVERFLOW at iter {it_p}: {num_pairs} pairs > capacity "
                       f"{rcfg.max_pairs} — step trained on a truncated pair list "

@@ -50,6 +50,7 @@ from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig, render, render_bat
 from deblurgs_tpu_torch.parallel import gauss_shard, shard
 from deblurgs_tpu_torch.train import losses, optim, schedules
 from deblurgs_tpu_torch.train.config import OptimizationConfig
+from deblurgs_tpu_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -368,9 +369,10 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
                 p, a, ad, draws.split, cfg=gcfg, grad_threshold=thr,
                 scene_extent=st.spatial_lr_scale, percent_dense=ocfg.percent_dense)
 
-        new_params, aux, adam_g, report = (
-            event(new_params, aux, adam_g) if gmesh is None else
-            gauss_shard.densify_event(gmesh, new_params, aux, adam_g, event))
+        with span("apply.densify"):
+            new_params, aux, adam_g, report = (
+                event(new_params, aux, adam_g) if gmesh is None else
+                gauss_shard.densify_event(gmesh, new_params, aux, adam_g, event))
     if do_reset:
         new_params, adam_g = densify_lib.reset_opacity(new_params, adam_g, gcfg)
 
@@ -383,10 +385,11 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
     mask_g = gm.GaussianParams(*([aux.active] * 6))
     gate_g = gm.GaussianParams(g_on, g_on, g_on, g_on, g_on, g_on and not do_reset)
     mask_m = motion_lib.MotionParams(*([curve_on and not_final] * 3))
-    new_params, adam_g = optim.update(new_params, g_params, adam_g, lr_g,
-                                      update_mask=mask_g, leaf_gate=gate_g)
-    new_motion, adam_m = optim.update(state.motion, g_motion, state.adam_m, lr_m,
-                                      update_mask=mask_m)
+    with span("apply.adam"):
+        new_params, adam_g = optim.update(new_params, g_params, adam_g, lr_g,
+                                          update_mask=mask_g, leaf_gate=gate_g)
+        new_motion, adam_m = optim.update(state.motion, g_motion, state.adam_m, lr_m,
+                                          update_mask=mask_m)
 
     # --- in-step overflow detection (pair capacity; on xla also the walk's
     # k_max, past which a tile's list is truncated)
@@ -426,8 +429,12 @@ def train_step(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch.T
             generator = torch.Generator(device=state.params.xyz.device).manual_seed(
                 int(state.step))
         draws = draw_step(state, st, gt_image.shape, generator)
-    fwd = forward_loss(state, gt_image, cam_idx, proj, st, draws)
-    return apply(state, fwd, backward(fwd), st, draws)
+    with span("step.forward"):
+        fwd = forward_loss(state, gt_image, cam_idx, proj, st, draws)
+    with span("step.backward"):
+        grads = backward(fwd)
+    with span("step.apply"):
+        return apply(state, fwd, grads, st, draws)
 
 
 def make_train_step(st: TrainStatics):

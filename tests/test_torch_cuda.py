@@ -30,6 +30,7 @@ from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig  # noqa: E402
 from deblurgs_tpu_torch.train import checkpoint  # noqa: E402
 from deblurgs_tpu_torch.train import step as step_lib  # noqa: E402
 from deblurgs_tpu_torch.train.config import OptimizationConfig  # noqa: E402
+from deblurgs_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 W, H, F = 256, 192, 3
@@ -47,6 +48,10 @@ def assert_scaled_close(got, want, atol=2e-5):
     """|got - want| / max|want| <= atol, per tensor."""
     scale = float(want.abs().max()) or 1.0
     torch.testing.assert_close(got / scale, want / scale, atol=atol, rtol=0)
+
+
+def launches(kernel: str) -> int:
+    return profiling.counters().get(f"kernel.{kernel}", 0)
 
 
 def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False, tile_w=16, tile_h=16):
@@ -83,9 +88,9 @@ def test_broadcast_kernel_matches_plain(card):
     area = torch.from_numpy(rng.integers(0, 9, 5000).astype(np.int32)).to(card)
     ctable = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32)).to(card)
     gauss_c = binning.expand_compact(area, 1 << 15)[0]
-    before = cuda_blend.broadcast_fields.launches
+    before = launches("K3")
     got = cuda_blend.broadcast_fields(ctable, gauss_c)
-    assert cuda_blend.broadcast_fields.launches == before + 1
+    assert launches("K3") == before + 1
     assert torch.equal(got, cuda_blend.broadcast_fields_ref(ctable, gauss_c))
 
 
@@ -122,9 +127,9 @@ def test_composite_kernel_matches_plain(card, tile_w, tile_h, need_n_contrib, fa
                                tile_h=tile_h)
     staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
     assert int(staged.total) <= cfg.max_pairs
-    before = cuda_blend_mixed.forward_mixed.launches
+    before = launches("K1")
     got = cuda_blend_mixed.forward_mixed(cfg, staged)
-    assert cuda_blend_mixed.forward_mixed.launches == before + 1
+    assert launches("K1") == before + 1
     want = cuda_blend_mixed.forward_ref(cfg, staged.fields, staged.tile_start, staged.tile_stop)
     torch.cuda.synchronize()
     for x, y in zip(want, got):
@@ -197,9 +202,9 @@ def test_backward_kernel_matches_plain(card, fast):
     C, D, T, _ = cuda_blend_mixed.forward_mixed(cfg, staged)
     dl_pix, dl_d = _cotangents(cfg)
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
-    before = cuda_blend_mixed.backward_mixed.launches
+    before = launches("K2")
     got = cuda_blend_mixed.backward_mixed(cfg, staged, bg, T, dl_pix, dl_d, C, D)
-    assert cuda_blend_mixed.backward_mixed.launches == before + 1
+    assert launches("K2") == before + 1
     total = cuda_blend_mixed.backward_total(cfg, bg, T, dl_pix, dl_d, C, D)
     want = cuda_blend_mixed.backward_ref(cfg, staged.fields, staged.tile_start,
                                          staged.tile_stop, dl_pix, dl_d, total)
@@ -222,9 +227,9 @@ def test_reduce_kernel_matches_plain(card):
     grads = torch.from_numpy(rng.standard_normal((16, mp)).astype(np.float32)).to(card)
     grads[10:] = 0
     grads[:, s_gc == P] = float("nan")  # sentinel slots are never read
-    before = cuda_blend.reduce_sorted.launches
+    before = launches("K4")
     got = cuda_blend.reduce_sorted(grads, s_gc, P)
-    assert cuda_blend.reduce_sorted.launches == before + 1
+    assert launches("K4") == before + 1
     want = cuda_blend.reduce_sorted_ref(grads, s_gc, P)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all()) and bool((got[:, 10:] == 0).all())
@@ -243,9 +248,9 @@ def test_reduce_main_path_matches_plain(card):
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
     pg = cuda_blend_mixed.backward_mixed(cfg, staged, bg, T, dl_pix, dl_d, C, D)
     P = flat[0].shape[0]
-    before = cuda_blend.reduce_sorted.launches
+    before = launches("K4")
     got = cuda_blend.reduce_pair_grads(staged, pg, P)
-    assert cuda_blend.reduce_sorted.launches == before + 1
+    assert launches("K4") == before + 1
     sums = cuda_blend.reduce_sorted_ref(pg, staged.s_gc, P)
     want = torch.zeros((P + 1, 16), device=card)
     want[torch.where(torch.arange(P, device=card) < staged.n_emit, staged.ids, P)] = sums
@@ -353,8 +358,7 @@ def test_lockstep_kernels_match_plain(card, tile, need_n_contrib):
     ``n_con`` included; K6 equals its plain version and K2 on the same list
     slot for slot, bit for bit, and two K6 calls agree."""
     cfg, mixed, staged, _ = _one_view(card, tile, need_n_contrib)
-    before = (cuda_blend_lockstep.forward_lockstep.launches,
-              cuda_blend_lockstep.backward_lockstep.launches)
+    before = (launches("K5"), launches("K6"))
     got = cuda_blend_lockstep.forward_lockstep(cfg, staged)
     args = (cfg, staged.fields, staged.tile_start, staged.tile_stop)
     want = cuda_blend_lockstep.forward_lockstep_ref(*args)
@@ -375,8 +379,7 @@ def test_lockstep_kernels_match_plain(card, tile, need_n_contrib):
                                                            D))
     assert torch.equal(pg, cuda_blend_lockstep.backward_lockstep(cfg, staged, bg, T, dl_pix,
                                                                  dl_d, C, D))
-    assert (cuda_blend_lockstep.forward_lockstep.launches,
-            cuda_blend_lockstep.backward_lockstep.launches) == (before[0] + 1, before[1] + 2)
+    assert (launches("K5"), launches("K6")) == (before[0] + 1, before[1] + 2)
 
 
 def test_lockstep_blend_gradients_match_plain(card):

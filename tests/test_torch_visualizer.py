@@ -2,7 +2,7 @@
 ``utils/profiling.py``) and ``eval/export.py::make_video`` against the JAX
 package's, mirroring tests/test_visualizer.py: the zoom-out camera, the
 frustum cones' pixels, the overview shot and its video, the alignment
-plot, the trajectory dumps, the step timer and the profiler trace.
+plot, the trajectory dumps and the profiler trace.
 
 Scene: ``tests/test_data.py``'s synthetic COLMAP scene (3 cameras, 25
 points, 64×48), curves of order 2 over 3 sub-frames; both packages start
@@ -10,7 +10,6 @@ from JAX's state. JAX renders with its XLA backend (as its own visualizer
 test does), the port with the pallas path's plain versions.
 """
 
-import json
 import os
 import sys
 
@@ -159,21 +158,6 @@ def test_make_video_without_imageio_writes_a_gif(tmp_path, monkeypatch):
     assert len(back) == 4 and gif.info["duration"] == 100
     for got, want in zip(back, frames):
         np.testing.assert_array_equal(got, want)
-
-
-def test_step_timer(tmp_path):
-    path = str(tmp_path / "steps.jsonl")
-    timer = profiling.StepTimer(path, flush_every=2)
-    for _ in range(4):
-        with timer:
-            pass
-    with open(path) as f:
-        records = [json.loads(line) for line in f]
-    assert [r["step"] for r in records] == [2, 4]
-    assert set(records[0]) == {"step", "total_sec", "mean_ms", "p50_ms", "p95_ms"}
-    timer.write_time_txt(str(tmp_path))
-    with open(tmp_path / "time.txt") as f:
-        assert f.read().startswith("Training Time = ")
 
 
 def test_profiler_trace_is_written(tmp_path):
