@@ -9,9 +9,10 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
 1. env        card name and power limit, torch / CUDA / nvcc versions, TF32 off;
 2. build      compiles the kernel library and reports each kernel's registers;
 3. parity     each kernel against its plain PyTorch version on the card at a
-              mid size (256×256, 4k Gaussians, F = 3, tile 32 and 16): K3
-              and K1 bit for bit, n_con included, for need_n_contrib on and
-              off and for ``fast``;
+              mid size (256×256, 4k Gaussians, F = 3, tile 32 and 16): K3,
+              its key epilogue (against ``slot_keys_ref``, and the staged
+              list against the plain keys' sort) and K1 bit for bit, n_con
+              included, for need_n_contrib on and off and for ``fast``;
 4. slice      the blurry render at full width (1920×1080, 100k Gaussians,
               SH degree 2, one order-9 se3 curve, F = 21, tile 32): the
               batched composition of the training step (subframe_cameras →
@@ -95,8 +96,10 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               under ``torch.cuda.set_sync_debug_mode("warn")``; the bare
               step on the same state at the loop's budget and at the emitted
               pairs + 10%, each with its forward stages; K1-K4 against their
-              plain versions on one step's inputs at the loop's budget (K3
-              and K4 in full, K1 and K2 on 64 sampled tiles); launches a
+              plain versions on one step's inputs at the loop's budget (K3,
+              its key epilogue, the staged list and K4 in full, K1 and K2 on
+              64 sampled tiles), the keyed K3 timed beside K3 alone and the
+              plain key passes; launches a
               step, peak memory and each stage's seconds.
 14. backends  the xla and oracle backends and the native host library:
               (a) the eval phase's run, whose ``cfg_args`` has no
@@ -325,6 +328,39 @@ def check_k3(torch, where: str, fslot, c) -> float:
         raise AssertionError(f"K3 {where}: differs from ctable[gauss_c].T "
                              f"(max |diff| {err:.3e})")
     return err
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality (a float32 NaN equals the same NaN)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+STAGED_CHECKED = ("fields", "s_tile", "s_gc", "tile_start", "tile_stop", "max_per_tile", "inv")
+
+
+def check_keys(torch, where: str, bcfg, c, fslot, keys, staged=None) -> dict:
+    """K3's key epilogue (``keys``, from ``broadcast_keys``) against its
+    plain version ``slot_keys_ref`` on K3's rows ``fslot`` and, where
+    ``staged`` (``sort_slots`` on ``keys``) is given, every output of the
+    staging against ``sort_slots``' plain path: bit for bit. Returns the
+    slots, the pairs emitted and the slots the keys keep."""
+    from deblurgs_tpu_torch.ops import cuda_blend
+
+    want = cuda_blend.slot_keys_ref(bcfg, fslot, c)
+    for name, got, ref in zip(cuda_blend.SlotKeys._fields, keys, want):
+        if not same_bits(torch, got, ref):
+            raise AssertionError(f"K3 keys {where}: {name} differs from slot_keys_ref")
+    kept = int((want.tile < bcfg.total_tiles).sum())
+    if staged is not None:
+        plain = cuda_blend.sort_slots(bcfg, fslot, c, want)
+        for name in STAGED_CHECKED:
+            if not same_bits(torch, getattr(staged, name), getattr(plain, name)):
+                raise AssertionError(f"staging {where}: {name} differs from the plain keys' sort")
+        del plain
+    del want
+    return dict(slots=fslot.shape[1], emitted=int(c.total), kept=kept)
 
 
 def check_k1(torch, where: str, bcfg, staged, got, tiles=None) -> float:
@@ -559,7 +595,8 @@ def plain_blend(bcfg, flat, bg):
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, tile_blend
 
     c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
-    st = cuda_blend.sort_slots(bcfg, cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c), c)
+    fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
+    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c))
     out = cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
     return tile_blend.compose(bcfg, *out, bg)
 
@@ -614,7 +651,8 @@ def read_counts() -> dict:
     from deblurgs_tpu_torch.utils import profiling
 
     c = profiling.counters()
-    return {k: c.get(f"kernel.{k}", 0) for k in ("K3", "K1", "K2", "K4", "K5", "K6")}
+    return {k: c.get(f"kernel.{k}", 0)
+            for k in ("K3", "K3.keys", "K1", "K2", "K4", "K5", "K6")}
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +705,7 @@ def phase_parity(torch, dev):
         motion_lib.MotionConfig(curve_order=9, n_subframes=3),
         torch.Generator(device=dev).manual_seed(SEED), init_noise=0.01)
     cams = motion_lib.subframe_cameras(motion, 0, motion_lib.sample_nu(motion, 0), proj)
-    errs, k3_err = {}, 0.0
+    errs, k3_err, keys_seen = {}, 0.0, {}
     for name, tile, kw in (("n_contrib", 32, dict(need_n_contrib=True)),
                            ("plain", 32, dict(need_n_contrib=False)),
                            ("fast", 32, dict(need_n_contrib=False, fast=True)),
@@ -677,16 +715,17 @@ def phase_parity(torch, dev):
         bcfg = rcfg.blend_config(cs, n_images=3)
         flat = flat_preprocess(gaussians, cams, cs, rcfg)
         c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
-        fslot = cuda_blend.broadcast_fields(c.ctable, c.gauss_c)
+        fslot, keys = cuda_blend.broadcast_keys(bcfg, c)
         k3_err = max(k3_err, check_k3(torch, f"parity {name}", fslot, c))
-        st = cuda_blend.sort_slots(bcfg, fslot, c)
+        st = cuda_blend.sort_slots(bcfg, fslot, c, keys)
+        keys_seen[name] = check_keys(torch, f"parity {name}", bcfg, c, fslot, keys, st)
         if int(st.total) > bcfg.max_pairs:
             raise AssertionError("parity scene overflows its pair budget")
         got = cuda_blend_mixed.forward_mixed(bcfg, st)
         torch.cuda.synchronize()
         errs[name] = {"K1": check_k1(torch, f"parity {name}", bcfg, st, got),
                       "pairs": int(st.total)}
-    emit("parity", K3=k3_err, K1=errs)
+    emit("parity", K3=k3_err, K3_keys=keys_seen, K1=errs)
     return errs, k3_err
 
 
@@ -749,7 +788,7 @@ def phase_slice(torch, dev):
         launches = read_counts()
         if launches["K2"] or launches["K4"] or launches["K5"] or launches["K6"]:
             raise AssertionError(f"the mixed forward path launched another kernel: {launches}")
-        for name in ("K3", "K1"):
+        for name in ("K3", "K3.keys", "K1"):
             n = launches[name]
             if n != 4 + F:
                 raise AssertionError(f"{name} launched {n} times on the main path, "
@@ -774,9 +813,9 @@ def phase_slice(torch, dev):
             ev[1].record()
             c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
             ev[2].record()
-            fslot = cuda_blend.broadcast_fields(c.ctable, c.gauss_c)
+            fslot, keys = cuda_blend.broadcast_keys(bcfg, c)
             ev[3].record()
-            st = cuda_blend.sort_slots(bcfg, fslot, c)
+            st = cuda_blend.sort_slots(bcfg, fslot, c, keys)
             ev[4].record()
             k1 = cuda_blend_mixed.forward_mixed(bcfg, st)
             ev[5].record()
@@ -789,6 +828,8 @@ def phase_slice(torch, dev):
         breakdown = {k: round(v, 4) for k, v in acc.items()}
         breakdown["staging_total"] = round(acc["compact"] + acc["K3"] + acc["sort"], 4)
         err_k3 = check_k3(torch, "full width", fslot, c)
+        keys_k3 = check_keys(torch, "full width", bcfg, c, fslot, keys, st)
+        del keys
         profile = device_profile(torch, batched_blur)
 
         # ---- K1 against its plain version on 64 sampled tiles ----
@@ -801,8 +842,8 @@ def phase_slice(torch, dev):
          blur_ms_events=[round(x, 4) for x in ev_ms],
          blur_ms_host=[round(x, 4) for x in host_ms], breakdown_ms=breakdown,
          launches=launches, launches_per_batched_blur=1, launches_per_query=F,
-         err_batched_vs_query=err_loop, err_k3=err_k3, err_k1_sampled_tiles=err_k1,
-         profile=profile)
+         err_batched_vs_query=err_loop, err_k3=err_k3, k3_keys=keys_k3,
+         err_k1_sampled_tiles=err_k1, profile=profile)
 
     def stage_at(tile: int):
         """The slice's lists staged at tile × tile tiles (its own budget)."""
@@ -880,7 +921,8 @@ def plain_blend_grads(torch, bcfg, flat, bg, d_img, d_dep):
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed as cbm, tile_blend
 
     c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
-    st = cuda_blend.sort_slots(bcfg, cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c), c)
+    fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
+    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c))
     C, D, T, _ = cbm.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
     dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
     dl_d = tile_blend._images_to_tiles(bcfg, d_dep)
@@ -976,8 +1018,9 @@ def step_kernel_inputs(torch, st, state, gt, bg, cam_idx, proj, views=slice(None
         flat = flat_preprocess((gm.render_inputs(state.params, st.gcfg), st.sh_degree), cams,
                                st.cs, st.rcfg, state.aux.active)
         compact = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)    # = sort_stage
-        staged = cuda_blend.sort_slots(
-            bcfg, cuda_blend.broadcast_fields(compact.ctable, compact.gauss_c), compact)
+        fslot, keys = cuda_blend.broadcast_keys(bcfg, compact)
+        staged = cuda_blend.sort_slots(bcfg, fslot, compact, keys)
+        del fslot, keys
         C, D, T, n_con = cuda_blend_mixed.forward_mixed(bcfg, staged)
         images = tile_blend.compose(bcfg, C, D, T, n_con, bg)[0]
     lam_t = float(schedules.expon_lr(state.step, st.ocfg.lambda_t_smooth_init,
@@ -1150,9 +1193,9 @@ def forward_stages(torch, bcfg, make_flat, bg, n_views: int, reps: int = 3,
             ev[1].record()
             c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
             ev[2].record()
-            fslot = cuda_blend.broadcast_fields(c.ctable, c.gauss_c)
+            fslot, keys = cuda_blend.broadcast_keys(bcfg, c)
             ev[3].record()
-            st = cuda_blend.sort_slots(bcfg, fslot, c)
+            st = cuda_blend.sort_slots(bcfg, fslot, c, keys)
             ev[4].record()
             out = composite(bcfg, st)
             ev[5].record()
@@ -1222,29 +1265,38 @@ def phase_train_trained(torch, dev):
     return err_k2[1], err_k4[1]
 
 
-def k3_yardstick(torch, c, iters: int) -> dict:
-    """K3 on a compact table ``c``: timed beside its plain version and
-    ``index_select`` (the one PyTorch call for the same function), held
-    bitwise to the plain version, with its byte bound (4 B of rank and 64 B
-    out a slot, a 64 B table row an emitting Gaussian)."""
+def k3_yardstick(torch, bcfg, c, iters: int) -> dict:
+    """K3 with its key epilogue (``broadcast_keys``, the launch the
+    staging makes) on a compact table ``c``: timed beside its plain
+    versions (``broadcast_fields_ref``, then ``slot_keys_ref`` on its rows)
+    and ``index_select`` (the one PyTorch call for the broadcast alone),
+    its rows held bitwise to the plain version, with its byte bound: 4 B of
+    rank and 64 B out a slot and a 64 B table row an emitting Gaussian, plus
+    the epilogue's 8 B of offset in and 28 B (key, tile id, rank, depth key)
+    out a slot."""
     from deblurgs_tpu_torch.ops import cuda_blend
 
     gauss_c = c.gauss_c.to(torch.int32)
     ctable = c.ctable.contiguous()
     max_pairs = gauss_c.shape[0]
-    got = cuda_blend.broadcast_fields(ctable, gauss_c)
+    got = cuda_blend.broadcast_keys(bcfg, c)[0]
     if not torch.equal(got, cuda_blend.broadcast_fields_ref(ctable, gauss_c)):
         raise AssertionError("K3 yardstick: differs from ctable[gauss_c].T")
     lib_err = max_err(got, torch.index_select(ctable.t(), 1, gauss_c))
     del got
-    ms = cuda_ms(lambda: cuda_blend.broadcast_fields(ctable, gauss_c), iters)
-    plain = cuda_ms(lambda: cuda_blend.broadcast_fields_ref(ctable, gauss_c), iters)
+
+    def plain():
+        fslot = cuda_blend.broadcast_fields_ref(ctable, gauss_c)
+        return cuda_blend.slot_keys_ref(bcfg, fslot, c)
+
+    ms = cuda_ms(lambda: cuda_blend.broadcast_keys(bcfg, c), iters)
+    plain_ms = cuda_ms(plain, 3)
     lib = cuda_ms(lambda: torch.index_select(ctable.t(), 1, gauss_c), iters)
     n_emit = int(c.n_emit)
-    nbytes = 4 * max_pairs + 64 * n_emit + 64 * max_pairs
+    nbytes = (4 + 64 + 8 + 28) * max_pairs + 64 * n_emit
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain, library_ms=lib,
-                library_call="torch.index_select(ctable.t(), 1, gauss_c)",
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                library_call="torch.index_select(ctable.t(), 1, gauss_c) (the rows alone)",
                 library_max_abs_err=lib_err, max_pairs=max_pairs, n_emit=n_emit, bytes=nbytes,
                 bound_ms=bound, share_of_bound=bound / ms)
 
@@ -1305,9 +1357,9 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     from deblurgs_tpu_torch.ops import cuda_blend, cuda_blend_mixed, kernels
 
     bcfg, st, c = sl["bcfg"], sl["staged"], sl["compact"]
-    k3 = k3_yardstick(torch, c, 20)
-    k3["previous_ms"] = K3_PREVIOUS_MS
-    k3["pr6_ms"] = K3_PR6_MS["slice"]
+    k3 = k3_yardstick(torch, bcfg, c, 20)
+    k3["previous_ms_without_keys"] = K3_PREVIOUS_MS
+    k3["pr6_ms_without_keys"] = K3_PR6_MS["slice"]
 
     # K1: ranges as int32 so the timed call is the launch alone
     st32 = st._replace(tile_start=st.tile_start.to(torch.int32),
@@ -1391,8 +1443,8 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                                        instructions_per_visit=per_visit, ms=issue_ms,
                                        share=issue_ms / k1_train_ms)
     # K3 on the same lists
-    k3_train = k3_yardstick(torch, k["compact"], 10)
-    k3_train["pr6_ms"] = K3_PR6_MS["train_lists"]
+    k3_train = k3_yardstick(torch, bcfg2, k["compact"], 10)
+    k3_train["pr6_ms_without_keys"] = K3_PR6_MS["train_lists"]
 
     # K4 on the main path (the staging's runs, sums to original rows) and by
     # rank array (the wrapper's sort), the plain version and index_add_
@@ -1443,7 +1495,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                  by_rank_array_profile=k4_rank_profile))
     launches = sl["launches"]
     return [
-        {"name": "K3 broadcast_fields", "route": "cuda",
+        {"name": "K3 broadcast_keys", "route": "cuda",
          "source": "deblurgs_tpu_torch/csrc/broadcast_fields.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend.py:199", "launches": launches["K3"],
          "max_abs_err": k3_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
@@ -1628,7 +1680,8 @@ def phase_train_lockstep(torch, dev):
         pairs.append(int(metrics.num_pairs))
     torch.cuda.synchronize()
     launches = read_counts()
-    want = {"K3": 2 * F, "K1": 0, "K2": 0, "K4": 2 * F, "K5": 2 * F, "K6": 2 * F}
+    want = {"K3": 2 * F, "K3.keys": 2 * F, "K1": 0, "K2": 0, "K4": 2 * F, "K5": 2 * F,
+            "K6": 2 * F}
     if launches != want:
         raise AssertionError(f"lockstep train step launches {launches}, expected {want}")
     if not all(math.isfinite(x) for x in losses_seen) or int(s.overflow_count):
@@ -2276,9 +2329,11 @@ def phase_train_cli(torch, dev, train_step_ms):
     st = statics["loop"]
     k = step_kernel_inputs(torch, st, state, timed._gts[0], bg, 0, timed._proj)
     bcfg, staged = k["bcfg"], k["staged"]
-    fslot = cuda_blend.broadcast_fields(k["compact"].ctable, k["compact"].gauss_c)
+    fslot, keys = cuda_blend.broadcast_keys(bcfg, k["compact"])
     err_k3 = check_k3(torch, "train_cli", fslot, k["compact"])
-    del fslot
+    keys_k3 = check_keys(torch, "train_cli", bcfg, k["compact"], fslot, keys, staged)
+    del fslot, keys
+    keys_k3["yardstick"] = k3_yardstick(torch, bcfg, k["compact"], 10)
     tiles = torch.from_numpy(np.random.default_rng(SEED + 15).choice(
         bcfg.total_tiles, 64, replace=False)).to(dev)
     err_k1 = check_k1(torch, "train_cli (64 tiles)", bcfg, staged,
@@ -2288,7 +2343,7 @@ def phase_train_cli(torch, dev, train_step_ms):
     err_k2 = check_k2(torch, "train_cli (64 tiles)", bcfg, staged, *kargs, pg, tiles=tiles)
     err_k4 = check_k4(torch, "train_cli", staged, pg, k["P"])
     kernel_check = dict(max_pairs=staged.fields.shape[1], num_pairs=int(k["flat"][-1].sum()),
-                        err_k3=err_k3, err_k1_sampled_tiles=err_k1,
+                        err_k3=err_k3, k3_keys=keys_k3, err_k1_sampled_tiles=err_k1,
                         err_k2_sampled_tiles=err_k2, err_k4=err_k4)
     del k, staged, pg, kargs
 
@@ -2324,7 +2379,7 @@ def phase_train_cli(torch, dev, train_step_ms):
         raise AssertionError(f"results.json: {results_json}")
     if not all(math.isfinite(results[k]["PSNR"]) for k in ("unfit", "fit")):
         raise AssertionError(f"evaluate: {results}")
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K3.keys", "K4"):
         if timed_launches[name] != 20:
             raise AssertionError(f"{name}: {timed_launches[name]} launches in 20 iterations")
     emit("train_cli", width=EVAL_SIZE[0], height=EVAL_SIZE[1], points=EVAL_SIZE[2],
@@ -3027,8 +3082,10 @@ def phase_recovery(torch, dev) -> dict:
     cam = vbr.step_cameras(args, state.step)
     bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
     k = step_kernel_inputs(torch, st, state, truth.blur_gts[cam], bg, cam, truth.proj)
-    err_k3 = check_k3(torch, "recovery", cuda_blend.broadcast_fields(
-        k["compact"].ctable, k["compact"].gauss_c), k["compact"])
+    fslot, keys = cuda_blend.broadcast_keys(k["bcfg"], k["compact"])
+    err_k3 = check_k3(torch, "recovery", fslot, k["compact"])
+    keys_k3 = check_keys(torch, "recovery", k["bcfg"], k["compact"], fslot, keys, k["staged"])
+    del fslot, keys
     err_k1 = check_k1(torch, "recovery", k["bcfg"], k["staged"], (k["C"], k["D"], k["T"],
                                                                   k["n_con"]))
     kargs = (bg, k["T"], k["dl_pix"], k["dl_d"], k["C"], k["D"])
@@ -3043,8 +3100,8 @@ def phase_recovery(torch, dev) -> dict:
          eval_max_pairs=budget, refine_view_pairs=refine_pairs,
          check_step=state.step, check_pairs=int(k["staged"].total),
          report={k: v for k, v in report.items() if k != "args"},
-         err_k1=err_k1, err_k2=err_k2, err_k3=err_k3, err_k4=err_k4, err_k5=err_k5,
-         err_k6=err_k6)
+         err_k1=err_k1, err_k2=err_k2, err_k3=err_k3, k3_keys=keys_k3, err_k4=err_k4,
+         err_k5=err_k5, err_k6=err_k6)
     return {"K1": err_k1, "K2": err_k2[1], "K3": err_k3, "K4": err_k4[1], "K5": err_k5,
             "K6": err_k6}
 
@@ -3124,7 +3181,8 @@ def phase_r5_jax_scene(torch, dev) -> dict:
         if not gap <= bound:
             missed.append(f"{key} by {gap - bound:.3e}")
     n_renders = args.n_cams * (args.n_sub * args.gt_oversample + 1) + 2 * args.n_cams
-    want_launches = {"K3": n_renders, "K1": n_renders, "K2": 0, "K4": 0, "K5": 0, "K6": 0}
+    want_launches = {"K3": n_renders, "K3.keys": n_renders, "K1": n_renders, "K2": 0, "K4": 0,
+                     "K5": 0, "K6": 0}
 
     # ---- K3, K1 and K5 on one view of JAX's state: camera 0's learned mid camera
     with torch.no_grad():
@@ -3134,9 +3192,11 @@ def phase_r5_jax_scene(torch, dev) -> dict:
                                type(cam)(*(x[None] for x in cam)), truth.cs, truth.rcfg_eval,
                                active)
         c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
-        fslot = cuda_blend.broadcast_fields(c.ctable, c.gauss_c)
+        fslot, keys = cuda_blend.broadcast_keys(bcfg, c)
         err_k3 = check_k3(torch, "r5_jax_scene", fslot, c)
-        staged = cuda_blend.sort_slots(bcfg, fslot, c)
+        staged = cuda_blend.sort_slots(bcfg, fslot, c, keys)
+        keys_k3 = check_keys(torch, "r5_jax_scene", bcfg, c, fslot, keys, staged)
+        del fslot, keys
         if int(staged.total) > bcfg.max_pairs:
             raise AssertionError("r5_jax_scene: the checked view overflows its pair budget")
         k1 = cuda_blend_mixed.forward_mixed(bcfg, staged)
@@ -3151,10 +3211,10 @@ def phase_r5_jax_scene(torch, dev) -> dict:
          port={k: got[k] for k in gaps}, jax={k: want[k] for k in gaps}, gaps=gaps,
          eval_max_num_pairs=render_with.max_num_pairs, eval_max_pairs=truth.rcfg_eval.max_pairs,
          checked_view_pairs=int(staged.total), gaussians_active=int(active.sum()),
-         err_k1=err_k1, err_k3=err_k3, err_k5=err_k5)
+         err_k1=err_k1, err_k3=err_k3, k3_keys=keys_k3, err_k5=err_k5)
     if missed:
         raise AssertionError(f"r5_jax_scene: JAX's report missed: {', '.join(missed)}")
-    if launches["K3"] < 1 or launches["K1"] < 1:
+    if launches["K3"] < 1 or launches["K1"] < 1 or launches["K3.keys"] != launches["K3"]:
         raise AssertionError(f"r5_jax_scene launches: {launches}")
     return {"K1": err_k1, "K3": err_k3, "K5": err_k5}
 

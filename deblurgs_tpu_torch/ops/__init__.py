@@ -3,8 +3,9 @@
 1. ``preprocess``       — per-Gaussian cull/project/conic/SH.
 2. ``binning``          — pair expansion (compact and original id
                           space), ``bin_gaussians``, range search.
-3. ``cuda_blend``       — staging: segmented broadcast (kernel K3), exact
-                          tile cull, stable (tile, depth) sort; the
+3. ``cuda_blend``       — staging: segmented broadcast with the slots'
+                          tile ids, exact tile cull and sort keys (kernel
+                          K3), stable (tile, depth) sort; the
                           gradient reduce by compact rank (kernel K4).
 4. ``cuda_blend_mixed`` — front-to-back compositing of stacked views
                           (kernel K1) and its per-pair gradients (kernel K2).

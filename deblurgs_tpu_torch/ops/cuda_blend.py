@@ -2,13 +2,17 @@
 reduce (K4).
 
 Counterpart of ``deblurgs_tpu/ops/pallas_blend.py``: ``broadcast_fields``
-(K3, ``pallas_blend.py:179-233``), ``_tile_visible`` (``:236-275``),
+(K3, ``pallas_blend.py:179-233``; here :func:`broadcast_keys`), ``_tile_visible`` (``:236-275``),
 ``_sort_stage`` (``:278-369``), and ``_reduce_sorted`` (K4, ``:858-926``)
 with ``reduce_pair_grads`` (``:929-948``). :func:`sort_stage` yields what
 every compositing kernel reads, K5/K6 (``layout="lockstep"``) as K1/K2:
 the sorted ``fields``, ``tile_start``/``tile_stop``, ``s_gc``, ``ids`` and
 ``n_emit``, and for K4 the sort's inverse and the rank runs (``inv``,
-``seg``). The TPU grid bookkeeping of that module has no counterpart:
+``seg``). On the card K3's epilogue also works out what the sort reads
+(each slot's tile id, the exact tile cull, the sentinels and the packed
+key: :func:`broadcast_keys`), in place of the slot-sized PyTorch passes
+of its plain version :func:`slot_keys_ref`. The TPU grid bookkeeping of
+that module has no counterpart:
 ``prepare_mixed``'s step maps, and lockstep's ``_step_maps`` with its
 ``step_*``, ``chunk_first`` and ``owner`` arrays (``:116-176, 397-409``),
 parity-interleaved buffers, one-hot routing. The kernels walk each tile's
@@ -68,37 +72,6 @@ def broadcast_fields_ref(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.T
     ok = (rank >= 0) & (rank < n_rows)
     rows = ctable[torch.where(ok, rank, 0)]
     return torch.where(ok[:, None], rows, 0.0).T.contiguous()
-
-
-def broadcast_fields(ctable: torch.Tensor, gauss_c: torch.Tensor) -> torch.Tensor:
-    """[P, 16] compact table + [max_pairs] non-decreasing compact ranks →
-    [16, max_pairs] slot-space field rows, ``out[:, s] = ctable[gauss_c[s]]``
-    (0 where a rank is outside [0, P)).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``csrc/broadcast_fields.cu``) or raise.
-    """
-    if ctable.device.type == "cpu":
-        return broadcast_fields_ref(ctable, gauss_c)
-    if ctable.device.type != "cuda" or gauss_c.device != ctable.device:
-        raise ValueError(f"broadcast_fields: tensors must share one CUDA device "
-                         f"(got {ctable.device} and {gauss_c.device})")
-    if ctable.dtype != torch.float32 or ctable.dim() != 2 or ctable.shape[1] != NFIELD:
-        raise ValueError(f"broadcast_fields: ctable must be [P, {NFIELD}] float32, "
-                         f"got {tuple(ctable.shape)} {ctable.dtype}")
-    if gauss_c.dim() != 1:
-        raise ValueError("broadcast_fields: gauss_c must be 1-D")
-    ctable = ctable.contiguous()
-    if ctable.data_ptr() % 16:         # the kernel reads 16 B vectors of it
-        ctable = ctable.clone()
-    gauss_c = gauss_c.to(torch.int32).contiguous()
-    max_pairs = gauss_c.shape[0]
-    out = torch.empty((NFIELD, max_pairs), dtype=torch.float32, device=ctable.device)
-    load_library().launch(
-        "deblurgs_broadcast_fields", ctable.data_ptr(), gauss_c.data_ptr(),
-        out.data_ptr(), ctable.shape[0], max_pairs, stream_ptr(ctable.device))
-    profiling.count("kernel.K3")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -227,16 +200,22 @@ def compact_table(cfg, means2d, conic, opacity, color, depth, rect, area,
                    local=local, total=total, n_emit=n_emit, seg=seg)
 
 
-def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
-    """Staging, second half (``pallas_blend.py:314-369``): per-slot tile id
-    → exact tile cull → stable (tile, depth) sort → per-tile ranges, from
-    the slot-space rows ``fslot`` that K3 broadcast. The sort's inverse
-    (``inv``) and ``c.seg`` go with the result for K4."""
-    dev = fslot.device
-    num_tiles = cfg.num_tiles
+class SlotKeys(NamedTuple):
+    """What the staging's stable (tile, depth) sort reads, per slot in
+    pre-sort order."""
+
+    key: torch.Tensor        # [max_pairs] i64 (tile << 32) | depth_order_bits(depth_key)
+    tile: torch.Tensor       # [max_pairs] i64 tile id (total_tiles: culled or past the budget)
+    gc_sent: torch.Tensor    # [max_pairs] i64 compact rank (P: culled or past the budget)
+    depth_key: torch.Tensor  # [max_pairs] f32 depth (the sentinel: culled or past the budget)
+
+
+def slot_keys_ref(cfg, fslot: torch.Tensor, c: Compact) -> SlotKeys:
+    """Plain version of K3's key epilogue (``pallas_blend.py:314-342``):
+    per-slot tile id → exact tile cull → sentinels → packed sort key, from
+    the slot-space rows ``fslot``."""
     total_tiles = cfg.total_tiles
     P = c.ctable.shape[0]
-    max_pairs = fslot.shape[1]
     gauss_c, valid = c.gauss_c, c.valid
     f32 = torch.float32
 
@@ -261,13 +240,76 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
     # doubles as field row 9
     depth_key = torch.where(valid, fslot[9], torch.full_like(fslot[9], _DEPTH_SENTINEL))
     gc_sent = torch.where(valid, gauss_c, P)
+    key = (tile << 32) | binning_lib.depth_order_bits(depth_key)
+    return SlotKeys(key=key, tile=tile, gc_sent=gc_sent, depth_key=depth_key)
 
-    order = torch.sort((tile << 32) | binning_lib.depth_order_bits(depth_key), stable=True).indices
+
+def broadcast_keys(cfg, c: Compact) -> tuple[torch.Tensor, SlotKeys]:
+    """K3 and its key epilogue in one pass: the [16, max_pairs] slot-space
+    field rows ``out[:, s] = c.ctable[c.gauss_c[s]]`` (0 where a rank is
+    outside [0, P); :func:`broadcast_fields_ref`) and the :class:`SlotKeys`
+    of :func:`slot_keys_ref`, bit for bit, with the tile cull as
+    :func:`tile_culled` sets it. ``c.total`` is read on the device: no host
+    wait.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernel
+    (``csrc/broadcast_fields.cu``) or raise.
+    """
+    ctable, gauss_c = c.ctable, c.gauss_c
+    if ctable.device.type == "cpu":
+        fslot = broadcast_fields_ref(ctable, gauss_c)
+        return fslot, slot_keys_ref(cfg, fslot, c)
+    dev = ctable.device
+    if dev.type != "cuda" or gauss_c.device != dev:
+        raise ValueError(f"broadcast_keys: tensors must share one CUDA device "
+                         f"(got {dev} and {gauss_c.device})")
+    if ctable.dtype != torch.float32 or ctable.dim() != 2 or ctable.shape[1] != NFIELD:
+        raise ValueError(f"broadcast_keys: ctable must be [P, {NFIELD}] float32, "
+                         f"got {tuple(ctable.shape)} {ctable.dtype}")
+    if gauss_c.dim() != 1:
+        raise ValueError("broadcast_keys: gauss_c must be 1-D")
+    ctable = ctable.contiguous()
+    if ctable.data_ptr() % 16:         # the kernel reads 16 B vectors of it
+        ctable = ctable.clone()
+    gauss_c = gauss_c.to(torch.int32).contiguous()
+    max_pairs = gauss_c.shape[0]
+    local, total = c.local.contiguous(), c.total
+    if (local.device != dev or local.dtype != torch.int64 or local.shape != (max_pairs,)
+            or total.device != dev or total.dtype != torch.int64 or total.numel() != 1):
+        raise ValueError(f"broadcast_keys: local must be [{max_pairs}] and total one int64 "
+                         f"on {dev}")
+    out = torch.empty((NFIELD, max_pairs), dtype=torch.float32, device=dev)
+    keys = SlotKeys(*(torch.empty(max_pairs, dtype=torch.int64, device=dev) for _ in range(3)),
+                    depth_key=torch.empty(max_pairs, dtype=torch.float32, device=dev))
+    load_library().launch(
+        "deblurgs_broadcast_fields_keys", ctable.data_ptr(), gauss_c.data_ptr(),
+        out.data_ptr(), ctable.shape[0], max_pairs, local.data_ptr(), total.data_ptr(),
+        keys.key.data_ptr(), keys.tile.data_ptr(), keys.gc_sent.data_ptr(),
+        keys.depth_key.data_ptr(), cfg.tile_w, cfg.tile_h, cfg.tiles_x, cfg.total_tiles,
+        int(tile_culled(cfg)), stream_ptr(dev))
+    profiling.count("kernel.K3")
+    profiling.count("kernel.K3.keys")
+    return out, keys
+
+
+def sort_slots(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys) -> Staged:
+    """Staging, second half (``pallas_blend.py:314-369``): stable (tile,
+    depth) sort of the slots by ``keys`` (K3's epilogue, or its plain
+    version :func:`slot_keys_ref` of ``fslot``, the slot-space rows that K3
+    broadcast) → per-tile ranges. The sort's inverse (``inv``) and
+    ``c.seg`` go with the result for K4."""
+    dev = fslot.device
+    num_tiles = cfg.num_tiles
+    total_tiles = cfg.total_tiles
+    max_pairs = fslot.shape[1]
+    f32 = torch.float32
+
+    order = torch.sort(keys.key, stable=True).indices
     inv = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     inv[order] = torch.arange(max_pairs, dtype=torch.int32, device=dev)
-    s_tile = tile[order]
-    s_depth = depth_key[order]
-    s_gc = gc_sent[order]
+    s_tile = keys.tile[order]
+    s_depth = keys.depth_key[order]
+    s_gc = keys.gc_sent[order]
     # rows 11-12 come from the per-image tile id (the JAX package takes the
     # modulo only for stacked views; the sentinel rows follow it exactly)
     s_img_tile = s_tile % num_tiles if cfg.n_images > 1 else s_tile
@@ -289,20 +331,20 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact) -> Staged:
 
 def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
                max_pairs: int) -> Staged:
-    """Expansion → segmented broadcast (K3) → tile cull → stable (tile,
-    depth) sort → per-tile ranges (``pallas_blend.py:278-369``). Lockstep
-    composites one view: stacked views are refused as in JAX
-    (``pallas_blend.py:393-395``)."""
+    """Expansion → segmented broadcast, tile ids, tile cull and sort keys
+    (K3 and its key epilogue) → stable (tile, depth) sort → per-tile
+    ranges (``pallas_blend.py:278-369``). Lockstep composites one view:
+    stacked views are refused as in JAX (``pallas_blend.py:393-395``)."""
     if cfg.layout == "lockstep" and cfg.n_images > 1:
         raise NotImplementedError("batched multi-view rendering requires layout='mixed'")
     with profiling.span("render.staging"):
         with profiling.span("staging.compact"):
             c = compact_table(cfg, means2d, conic, opacity, color, depth, rect, area, max_pairs)
         with profiling.span("staging.broadcast"):
-            fslot = broadcast_fields(c.ctable, c.gauss_c)
+            fslot, keys = broadcast_keys(cfg, c)
         with profiling.span("staging.sort"):
             profiling.count("staging.slots", max_pairs)
-            return sort_slots(cfg, fslot, c)
+            return sort_slots(cfg, fslot, c, keys)
 
 
 # ---------------------------------------------------------------------------

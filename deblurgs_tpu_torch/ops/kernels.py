@@ -40,7 +40,8 @@ _f32 = ctypes.c_float
 # C entry points: name -> argument types (every pointer and the stream are
 # void*); each returns the cudaError_t of its launch
 _SIGNATURES = {
-    "deblurgs_broadcast_fields": [_vp, _vp, _vp, _i64, _i64, _vp],
+    "deblurgs_broadcast_fields_keys": [_vp, _vp, _vp, _i64, _i64] + [_vp] * 6
+                                      + [_i32] * 3 + [_i64, _i32, _vp],
     "deblurgs_forward_mixed": [_vp, _i64, _vp, _vp] + [_i32] * 10 + [_vp] * 5,
     "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp] + [_i32] * 9 + [_vp] * 6
                                + [_f32, _vp, _vp],

@@ -113,6 +113,86 @@ def test_staging_overflow_keeps_truncation():
             np.testing.assert_array_equal(np_of(y), np_of(x), err_msg=name)
 
 
+def _edge_preprocessed(n_images):
+    """``_preprocessed`` with hostile rows among the emitting Gaussians: a
+    depth of -0.0, negative depths and a conic whose tile-box edges
+    overflow (inf - inf on some edges, +inf on others). No NaN: JAX's
+    one-hot matmul broadcast spreads one to every slot of its window
+    (0 · NaN), the port's copy does not (a NaN row is held on the card)."""
+    pre = [x.copy() for x in _preprocessed(n_images)]
+    conic, depth = pre[1], pre[4]
+    emit = np.flatnonzero(pre[6] > 0)
+    depth[emit[2]] = -0.0
+    depth[emit[4]] = -2.0
+    depth[emit[len(emit) // 2]] = -1e-3
+    conic[emit[8]] = (1e38, 0.0, -1e38)
+    return pre
+
+
+def _jax_sort_operands(monkeypatch, jcfg, pre):
+    """What JAX's ``_sort_stage`` hands its stable sort: the per-slot tile
+    id, depth key and rank (``pallas_blend.py:314-342``), read off the
+    ``jax.lax.sort`` call inside the jitted stage."""
+    seen = []
+    real = jax.lax.sort
+
+    def spy(operands, *args, **kwargs):
+        if kwargs.get("num_keys") == 2:     # the (tile, depth) sort, not a search's
+            seen.append(operands[:3])
+        return real(operands, *args, **kwargs)
+
+    def run(*x):
+        jpb._sort_stage(jcfg, *x, jcfg.max_pairs)
+        (operands,) = seen
+        return operands
+
+    monkeypatch.setattr(jax.lax, "sort", spy)
+    return [np.asarray(x) for x in jax.jit(run)(*to_jax(*pre))]
+
+
+# (n_images, need_n_contrib, max_pairs): a culled pair, the stacked-tile
+# offset, the overflow slots' sentinels, the uncut lists
+SLOT_KEY_CASES = [(1, False, MAX_PAIRS), (3, False, MAX_PAIRS), (3, False, 256),
+                  (1, True, MAX_PAIRS)]
+
+
+@pytest.mark.parametrize("n_images,need_n_contrib,max_pairs", SLOT_KEY_CASES,
+                         ids=["F1-cull_on", "F3-cull_on", "F3-overflow", "F1-cull_off"])
+def test_slot_keys_match_jax(monkeypatch, n_images, need_n_contrib, max_pairs):
+    """The plain version of K3's key epilogue (``slot_keys_ref``, which the
+    CPU path runs) against JAX's staging before its sort, bit for bit:
+    tile ids, depth keys and ranks, with -0.0, negative depths and an
+    overflowing conic among the rows; the packed key orders as JAX's
+    (tile, depth)."""
+    jcfg, tcfg = _blend_configs(n_images, need_n_contrib, max_pairs=max_pairs)
+    pre = _edge_preprocessed(n_images)
+    j_tile, j_depth, j_gc = _jax_sort_operands(monkeypatch, jcfg, pre)
+    c = cuda_blend.compact_table(tcfg, *to_torch(*pre), max_pairs)
+    keys = cuda_blend.broadcast_keys(tcfg, c)[1]      # the CPU path: slot_keys_ref
+    np.testing.assert_array_equal(np_of(keys.tile), j_tile)
+    # as values: JAX's broadcast is a one-hot matmul, whose sum turns -0.0
+    # into +0.0; the port's copies the bits (the key packs both as +0.0)
+    np.testing.assert_array_equal(np_of(keys.depth_key), j_depth)
+    np.testing.assert_array_equal(np_of(keys.gc_sent), j_gc)
+    key = np_of(keys.key)
+    np.testing.assert_array_equal(key >> 32, j_tile)
+    np.testing.assert_array_equal(np.argsort(key, kind="stable"),
+                                  np.lexsort((j_depth + np.float32(0.0), j_tile)))
+    # the case holds what it names
+    total, tt = int(c.total), tcfg.total_tiles
+    live = np.arange(max_pairs) < min(total, max_pairs)
+    kept = j_tile < tt
+    assert (kept[live].all()) == need_n_contrib
+    assert (j_tile[~live] == tt).all() and (j_depth[~live] == np.float32(3e37)).all()
+    assert (j_gc[~live] == c.ctable.shape[0]).all()
+    assert (total > max_pairs) == (max_pairs < MAX_PAIRS)
+    assert (j_tile[kept] >= tcfg.num_tiles).any() == (n_images > 1 and max_pairs == MAX_PAIRS)
+    assert (j_depth[kept] < 0).any()
+    if max_pairs == MAX_PAIRS:
+        depth = np_of(keys.depth_key)[kept]
+        assert (np.signbit(depth) & (depth == 0)).any()
+
+
 def test_depth_order_key():
     """The packed sort key orders f32 depths like the floats themselves,
     with the 3e37 sentinel last."""
@@ -129,7 +209,7 @@ def test_broadcast_plain_matches_jax_kernel(seed, n_emit, p, max_pairs):
     ctable = rng.standard_normal((p, 16)).astype(np.float32)
     gauss_c, _, _, _, total = tbin.expand_compact(torch.from_numpy(area), max_pairs)
     total = min(int(total), max_pairs)
-    got = cuda_blend.broadcast_fields(torch.from_numpy(ctable), gauss_c)
+    got = cuda_blend.broadcast_fields_ref(torch.from_numpy(ctable), gauss_c)
     ref = jpb.broadcast_fields(jnp.asarray(ctable), jnp.asarray(np_of(gauss_c).astype(np.int32)),
                                interpret=True)
     assert got.shape == (16, max_pairs)
@@ -145,7 +225,7 @@ def test_broadcast_plain_matches_jax_past_the_table():
     ctable = rng.standard_normal((p, 16)).astype(np.float32)
     ranks = np.sort(rng.integers(160, p + 40, max_pairs)).astype(np.int32)
     assert (ranks >= p).sum() > 50
-    got = cuda_blend.broadcast_fields(torch.from_numpy(ctable), torch.from_numpy(ranks))
+    got = cuda_blend.broadcast_fields_ref(torch.from_numpy(ctable), torch.from_numpy(ranks))
     ref = jpb.broadcast_fields(jnp.asarray(ctable), jnp.asarray(ranks), interpret=True)
     np.testing.assert_array_equal(np_of(got), np.asarray(ref))
     assert (np_of(got)[:, ranks >= p] == 0).all()
@@ -366,9 +446,10 @@ def test_wrappers_never_fall_back():
     """A tensor on neither the CPU nor a CUDA device is refused; it is
     not quietly routed to the plain version."""
     meta = torch.device("meta")
+    c = cuda_blend.Compact(torch.empty((4, 16), device=meta),
+                           *(torch.empty(8, dtype=torch.int64, device=meta) for _ in range(7)))
     with pytest.raises(ValueError):
-        cuda_blend.broadcast_fields(torch.empty((4, 16), device=meta),
-                                    torch.empty(8, dtype=torch.int32, device=meta))
+        cuda_blend.broadcast_keys(ttb.BlendConfig(width=8, height=8), c)
     staged = cuda_blend.Staged(*(torch.empty(1, device=meta) for _ in STAGED))
     with pytest.raises(ValueError):
         cuda_blend_mixed.forward_mixed(ttb.BlendConfig(width=8, height=8), staged)

@@ -7,6 +7,7 @@ without JAX run it without the conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 import os
 import sys
@@ -54,9 +55,12 @@ def launches(kernel: str) -> int:
     return profiling.counters().get(f"kernel.{kernel}", 0)
 
 
-def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False, tile_w=16, tile_h=16):
-    """A seeded scene seen by F sub-frame cameras, preprocessed on the card
-    at tile_w × tile_h tiles and flattened as render_batch flattens it."""
+def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False, tile_w=16, tile_h=16,
+                   width=W, height=H, n_sub=F, max_pairs=1 << 17):
+    """A seeded scene seen by n_sub sub-frame cameras at width × height,
+    preprocessed on the card at tile_w × tile_h tiles and flattened as
+    render_batch flattens it."""
+    W, H, F = width, height, n_sub
     rng = np.random.default_rng(0)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=card)  # noqa: E731
     q = rng.standard_normal((n, 4))
@@ -78,9 +82,21 @@ def _staged_inputs(card, n=3000, need_n_contrib=False, fast=False, tile_w=16, ti
     flat = [x.reshape((F * n,) + x.shape[2:]) for x in (
         pre.means2d, pre.conic, pre.opacity, pre.color, pre.depth, pre.rect, pre.tiles_touched)]
     cfg = tile_blend.BlendConfig(width=W, height=H, tile_w=tile_w, tile_h=tile_h,
-                                 max_pairs=1 << 17, n_images=F,
+                                 max_pairs=max_pairs, n_images=F,
                                  need_n_contrib=need_n_contrib, fast=fast, layout="mixed")
     return cfg, flat
+
+
+def _k3_rows(ctable, gauss_c):
+    """K3's field rows for any table and ranks: ``broadcast_keys`` on a
+    compact table with no pair emitted (every key a sentinel)."""
+    n = gauss_c.shape[0]
+    zeros = torch.zeros(n, dtype=torch.int64, device=ctable.device)
+    c = cuda_blend.Compact(ctable=ctable, gauss_c=gauss_c, ids=zeros, valid=zeros.bool(),
+                           local=zeros, total=zeros[:1].sum(), n_emit=zeros[:1].sum(),
+                           seg=zeros)
+    cfg = tile_blend.BlendConfig(width=64, height=64, tile_w=16, tile_h=16)
+    return cuda_blend.broadcast_keys(cfg, c)[0]
 
 
 def test_broadcast_kernel_matches_plain(card):
@@ -89,7 +105,7 @@ def test_broadcast_kernel_matches_plain(card):
     ctable = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32)).to(card)
     gauss_c = binning.expand_compact(area, 1 << 15)[0]
     before = launches("K3")
-    got = cuda_blend.broadcast_fields(ctable, gauss_c)
+    got = _k3_rows(ctable, gauss_c)
     assert launches("K3") == before + 1
     assert torch.equal(got, cuda_blend.broadcast_fields_ref(ctable, gauss_c))
 
@@ -106,11 +122,107 @@ def test_broadcast_kernel_odd_sizes_and_ranks_out_of_range(card, max_pairs):
     ranks[-1] = n_rows          # at least one rank past the table
     gauss_c = torch.from_numpy(ranks).to(card)
     for g in (gauss_c[1:], gauss_c[:-1]):
-        got = cuda_blend.broadcast_fields(ctable, g)
+        got = _k3_rows(ctable, g)
         want = cuda_blend.broadcast_fields_ref(ctable, g)
         bad = (g < 0) | (g >= n_rows)
         assert torch.equal(got, want)
         assert bool((got[:, bad] == 0).all())
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _assert_same_bits(got, want, what):
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    bad = int((_bits(got) != _bits(want)).sum())
+    assert bad == 0, f"{what}: {bad} elements differ"
+
+
+def _edge_rows(flat):
+    """The flattened preprocess outputs with hostile rows among the
+    emitting Gaussians: a NaN conic, a conic whose tile-box edges overflow
+    to inf - inf = NaN on some edges and +inf on others (torch.maximum
+    keeps the NaN, fmaxf would not), an opacity of NaN, a depth of -0.0 and
+    negative depths. Returns the rows' indices too."""
+    flat = list(flat)
+    conic, opacity, depth = flat[1].clone(), flat[2].clone(), flat[4].clone()
+    emit = torch.nonzero(flat[6] > 0).flatten().tolist()
+    rows = dict(nan_conic=emit[3], overflow_conic=emit[11], nan_opacity=emit[13],
+                zero_depth=emit[7], negative_depth=emit[9])
+    conic[rows["nan_conic"], 1] = float("nan")
+    conic[rows["overflow_conic"]] = torch.tensor([1e38, 0.0, -1e38])
+    opacity[rows["nan_opacity"]] = float("nan")
+    depth[rows["zero_depth"]] = -0.0
+    depth[rows["negative_depth"]] = -1.5
+    depth[emit[len(emit) // 2]] = -1e-3
+    flat[1], flat[2], flat[4] = conic, opacity, depth
+    return flat, rows
+
+
+def _check_slot_keys(card, cfg, flat):
+    """K3's key epilogue bit for bit against ``slot_keys_ref`` on K3's own
+    rows, and ``sort_stage`` (which launches it) bit for bit against
+    ``sort_slots``' plain path; both launches counted."""
+    c = cuda_blend.compact_table(cfg, *flat, cfg.max_pairs)
+    before = launches("K3"), launches("K3.keys")
+    fslot, keys = cuda_blend.broadcast_keys(cfg, c)
+    assert (launches("K3"), launches("K3.keys")) == (before[0] + 1, before[1] + 1)
+    _assert_same_bits(fslot, cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c), "K3 rows")
+    want = cuda_blend.slot_keys_ref(cfg, fslot, c)
+    for name, got, ref in zip(cuda_blend.SlotKeys._fields, keys, want):
+        _assert_same_bits(got, ref, name)
+    del keys
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    assert launches("K3.keys") == before[1] + 2
+    plain = cuda_blend.sort_slots(cfg, fslot, c, want)
+    for name in cuda_blend.Staged._fields:
+        if getattr(plain, name) is not None:
+            _assert_same_bits(getattr(staged, name), getattr(plain, name), name)
+    return c, want
+
+
+# (n_images, need_n_contrib, max_pairs): cull on and off, one view and
+# three, a budget the scene overflows, budgets that are not a multiple of
+# four (K3's scalar path)
+SLOT_KEY_CASES = [(3, False, 1 << 17), (3, True, 1 << 17), (1, False, 1 << 17),
+                  (1, True, 1 << 17), (3, False, 1 << 12), (3, True, (1 << 17) + 3),
+                  (1, False, 2047)]
+
+
+@pytest.mark.parametrize("n_images,need_n_contrib,max_pairs", SLOT_KEY_CASES,
+                         ids=[f"F{n}-{'cull_off' if nc else 'cull_on'}-{m}"
+                              for n, nc, m in SLOT_KEY_CASES])
+def test_slot_keys_kernel_matches_plain(card, n_images, need_n_contrib, max_pairs):
+    """K3's key epilogue (tile ids, the exact tile cull, sentinels, packed
+    keys) and the staged list it sorts bit for bit against the plain
+    version, with a NaN conic, an overflowing conic, a NaN opacity, -0.0
+    and negative depths among the rows; the case holds what it names."""
+    cfg, flat = _staged_inputs(card, need_n_contrib=need_n_contrib, max_pairs=max_pairs)
+    flat, rows = _edge_rows(flat)
+    if n_images == 1:
+        flat = [x[:x.shape[0] // F] for x in flat]
+        cfg = dataclasses.replace(cfg, n_images=1)
+    c, want = _check_slot_keys(card, cfg, flat)
+    total, kept = int(c.total), want.tile < cfg.total_tiles
+    assert (total > max_pairs) == (max_pairs < 1 << 17)
+    assert int(kept.sum()) < min(total, max_pairs) if not need_n_contrib else \
+        int(kept.sum()) == min(total, max_pairs)
+    kept_depth = want.depth_key[kept]
+    assert bool((kept_depth < 0).any())
+    if max_pairs >= 1 << 17:
+        assert bool((want.tile[kept] >= cfg.num_tiles).any()) == (n_images > 1)
+        assert bool(((kept_depth == 0) & torch.signbit(kept_depth)).any())
+
+
+def test_slot_keys_kernel_at_the_train_budget(card):
+    """The same at the training loop's 2^27 slots: 1920×1080, F = 21, tile
+    32, 100k Gaussians, tile cull on."""
+    cfg, flat = _staged_inputs(card, n=100_000, tile_w=32, tile_h=32, width=1920,
+                               height=1080, n_sub=21, max_pairs=1 << 27)
+    flat, _ = _edge_rows(flat)
+    c, want = _check_slot_keys(card, cfg, flat)
+    assert 0 < int((want.tile < cfg.total_tiles).sum()) < int(c.total) <= cfg.max_pairs
 
 
 K1_TILES = [(32, 32), (16, 16), (8, 8), (16, 8), (40, 20)]
@@ -166,7 +278,8 @@ def test_blend_kernel_path_matches_plain_path(card):
     bg = torch.tensor([0.1, 0.2, 0.3], device=card)
     img, dep, final_t, _, total, _ = tile_blend.blend_fused(cfg, *flat, bg)
     c = cuda_blend.compact_table(cfg, *flat, cfg.max_pairs)
-    st = cuda_blend.sort_slots(cfg, cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c), c)
+    fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
+    st = cuda_blend.sort_slots(cfg, fslot, c, cuda_blend.slot_keys_ref(cfg, fslot, c))
     plain = tile_blend.compose(cfg, *cuda_blend_mixed.forward_ref(
         cfg, st.fields, st.tile_start, st.tile_stop), bg)
     torch.testing.assert_close(img, plain[0], atol=1e-5, rtol=0)
@@ -176,13 +289,17 @@ def test_blend_kernel_path_matches_plain_path(card):
 
 
 def test_wrappers_check_their_inputs(card):
-    with pytest.raises(ValueError):
-        cuda_blend.broadcast_fields(torch.zeros((4, 16), dtype=torch.float64, device=card),
-                                    torch.zeros(8, dtype=torch.int32, device=card))
-    with pytest.raises(ValueError):
-        cuda_blend.broadcast_fields(torch.zeros((4, 8), device=card),
-                                    torch.zeros(8, dtype=torch.int32, device=card))
     cfg = tile_blend.BlendConfig(width=64, height=64, tile_w=64, tile_h=32)
+    c = cuda_blend.compact_table(cfg, *(x.to(card) for x in (
+        torch.zeros((1, 2)), torch.ones((1, 3)), torch.ones(1), torch.zeros((1, 3)),
+        torch.ones(1), torch.tensor([[0, 0, 1, 1]]), torch.ones(1, dtype=torch.int32))), 8)
+    cuda_blend.broadcast_keys(cfg, c)
+    with pytest.raises(ValueError):
+        cuda_blend.broadcast_keys(cfg, c._replace(ctable=c.ctable.double()))
+    with pytest.raises(ValueError):
+        cuda_blend.broadcast_keys(cfg, c._replace(ctable=c.ctable[:, :8]))
+    with pytest.raises(ValueError):
+        cuda_blend.broadcast_keys(cfg, c._replace(local=c.local.to(torch.int32)))
     staged = cuda_blend.Staged(*(torch.zeros(1, device=card) for _ in range(9)))
     with pytest.raises(ValueError):
         cuda_blend_mixed.forward_mixed(cfg, staged._replace(
