@@ -69,6 +69,18 @@ def read_ply(path) -> dict[str, np.ndarray]:
     return {n: np.ascontiguousarray(arr[n]) for n, _ in props}
 
 
+def vertex_count(path) -> int:
+    """The 'vertex' element's count, read from the header alone."""
+    with open(path, "rb") as f:
+        for raw in f:
+            parts = raw.decode("ascii").split()
+            if parts[:2] == ["element", "vertex"]:
+                return int(parts[2])
+            if parts[:1] == ["end_header"]:
+                break
+    raise ValueError(f"{path}: no vertex element")
+
+
 def write_ply(path, columns: dict[str, np.ndarray]):
     """Write a vertex element from a dict of equal-length column arrays.
     The file is written beside ``path`` and renamed over it, so a reader

@@ -14,9 +14,10 @@ decides everything between steps:
   active count nears the slots while densifying, the Gaussian capacity
   doubles and every per-Gaussian leaf is padded (:func:`grow_capacity`);
   when the pair count passes 85% of ``max_pairs``, the pair budget
-  doubles; ``max_pairs == 0`` sizes it once at the start
-  (:meth:`Trainer.autosize_max_pairs`); on the xla backend ``k_max``
-  doubles when a tile's list outgrows it;
+  doubles up to a slot ceiling, past which the batched render splits the
+  sub-frames into one more group (:func:`plan_groups`); ``max_pairs == 0``
+  sizes both once at the start (:meth:`Trainer.autosize_max_pairs`); on
+  the xla backend ``k_max`` doubles when a tile's list outgrows it;
 - the saving cadence (PLY snapshots, ``cm.npz``, full checkpoints), the
   EMA-smoothed log, the visualizer and ``time.txt`` (the wall time of
   :meth:`Trainer.train`, which ends on a drain's host copy).
@@ -51,6 +52,7 @@ import torch
 
 from deblurgs_tpu_torch.core.camera import c2w_to_view, make_camera_arrays
 from deblurgs_tpu_torch.data.gaussian_ply import load_gaussian_ply, save_gaussian_ply
+from deblurgs_tpu_torch.data.ply import vertex_count
 from deblurgs_tpu_torch.data.scene import Scene
 from deblurgs_tpu_torch.device import resolve_device
 from deblurgs_tpu_torch.models import gaussians as gm
@@ -66,7 +68,35 @@ from deblurgs_tpu_torch.utils.profiling import count, span
 
 # the drained scalars of one step's metrics, copied to the host together
 _DRAINED = ("loss", "l1", "t_smooth", "hinge", "psnr", "num_active", "num_pairs",
-            "max_per_tile", "overflowed", "overflow_count")
+            "max_per_tile", "overflowed", "overflow_count", "pairs_staged",
+            "pairs_recomputed")
+# the most slots one staging is given before the sub-frames split into
+# groups: the budget of 21 sub-frames of a 100k-point 1080p capture, which
+# trains in 41 GB of an 80 GB card
+SLOT_CEILING = 1 << 27
+
+
+def _pow2_budget(pairs: float) -> int:
+    return 1 << max(16, int(np.ceil(np.log2(max(pairs, 1)))))
+
+
+def plan_groups(per_view: int, n_sub: int, cams: int = 1,
+                ceiling: int = SLOT_CEILING) -> tuple[int, int]:
+    """(max_pairs, groups): the fewest groups of the ``n_sub`` sub-frames
+    whose budget (the worst view's pairs × the largest group's sub-frames
+    × ``cams`` × 1.5 headroom, rounded up to a power of two and at least
+    2^16) is at most ``ceiling``; one sub-frame a group where none fits."""
+    for groups in range(1, n_sub + 1):
+        max_pairs = _pow2_budget(per_view * -(-n_sub // groups) * cams * 1.5)
+        if max_pairs <= ceiling:
+            break
+    return max_pairs, groups
+
+
+def _capacity_for(n: int) -> int:
+    """Gaussian slots for ``n`` starting Gaussians: twice them, a power of
+    two, at least 1024."""
+    return 1 << int(np.ceil(np.log2(max(n * 2, 1024))))
 
 
 class EmaLogger:
@@ -144,6 +174,8 @@ class Trainer:
     draws_fn: Optional[Callable] = None   # (iteration, state) -> StepDraws
 
     def __post_init__(self):
+        self.subframe_groups = 1
+        self._mesh = None   # train()'s mesh: sub-frame groups only without one
         if self.batched_render and not (self.rcfg.backend == "pallas"
                                         and self.rcfg.layout == "mixed"):
             # batched rendering stacks all views on the mixed kernel's tile
@@ -189,12 +221,14 @@ class Trainer:
             tone_mapping=self.tone_mapping, spatial_lr_scale=float(self.scene.cameras_extent),
             random_sample=random_sample,
             white_background=getattr(self.scene, "white_background", False), mesh=mesh,
-            batched_render=self.batched_render, cams_per_step=self.cams_per_step)
+            batched_render=self.batched_render, cams_per_step=self.cams_per_step,
+            subframe_groups=1 if mesh is not None else min(self.subframe_groups, n_sub))
 
-    # -- the step's statics keyed as JAX keys its compiled variants
+    # -- the step's statics keyed as JAX keys its compiled variants (and by
+    # the sub-frame groups)
     def _get_statics(self, sh_degree: int, n_sub: int, random_sample: bool, capacity: int,
                      rcfg: RasterizeConfig, mesh=None) -> step_lib.TrainStatics:
-        key = (sh_degree, n_sub, random_sample, capacity, rcfg, mesh)
+        key = (sh_degree, n_sub, random_sample, capacity, rcfg, mesh, self.subframe_groups)
         if key not in self._step_cache:
             self._step_cache[key] = self.statics(sh_degree, n_sub, random_sample, rcfg, mesh)
         return self._step_cache[key]
@@ -212,13 +246,15 @@ class Trainer:
             return state, int(state.step)
         pcd = self.scene.info.point_cloud
         n0 = pcd.points.shape[0]
-        capacity = capacity or max(1 << int(np.ceil(np.log2(max(n0 * 2, 1024)))), 1024)
         if load_path:
+            # a trained run's PLY may hold many more Gaussians than the
+            # scene's point cloud: the slots are sized for the larger
             it = Scene.search_max_iteration(os.path.join(load_path, "point_cloud"))
-            params, aux = load_gaussian_ply(
-                os.path.join(load_path, "point_cloud", f"iteration_{it}", "point_cloud.ply"),
-                self.gcfg, capacity, device=dev)
+            path = os.path.join(load_path, "point_cloud", f"iteration_{it}", "point_cloud.ply")
+            capacity = capacity or _capacity_for(max(n0, vertex_count(path)))
+            params, aux = load_gaussian_ply(path, self.gcfg, capacity, device=dev)
         else:
+            capacity = capacity or _capacity_for(n0)
             params, aux = gm.create_from_pcd(
                 torch.as_tensor(pcd.points, dtype=torch.float32, device=dev),
                 torch.as_tensor(pcd.colors, dtype=torch.float32, device=dev),
@@ -247,8 +283,11 @@ class Trainer:
         training camera's nominal pose, the worst view budgeted for the
         whole launch — n_sub sub-frames (batched) × cams_per_step views —
         with 1.5× headroom for densification and the curves' spread, rounded
-        up to a power of two and at least 2^16. The reactive doubling in
-        :meth:`train` stays on for growth that outruns the estimate."""
+        up to a power of two and at least 2^16. Where that passes
+        :data:`SLOT_CEILING` the batched sub-frames render in the fewest
+        groups whose budget fits (:func:`plan_groups`), which sets
+        ``subframe_groups``. The reactive doubling in :meth:`train` stays on
+        for growth that outruns the estimate."""
         rin = gm.render_inputs(state.params, self.gcfg)
         rots = torch.as_tensor(self.scene.rotations, dtype=torch.float32, device=self.device)
         centers = torch.as_tensor(self.scene.centers, dtype=torch.float32, device=self.device)
@@ -261,11 +300,13 @@ class Trainer:
                 state.aux.active, None)
             counts.append(pre.tiles_touched.to(torch.int64).sum())
         per_view = int(torch.stack(counts).max())
-        n_views = (self.mcfg.n_subframes if self.batched_render else 1) * self.cams_per_step
-        budget = int(per_view * n_views * 1.5)
-        max_pairs = 1 << max(16, int(np.ceil(np.log2(max(budget, 1)))))
+        n_sub = self.mcfg.n_subframes if self.batched_render else 1
+        max_pairs, groups = plan_groups(per_view, n_sub, self.cams_per_step)
+        self.subframe_groups = groups
+        n_views = -(-n_sub // groups) * self.cams_per_step
+        split = f"; {groups} groups of the {n_sub} sub-frames" if groups > 1 else ""
         print(f"[pairs] auto-sized max_pairs = {max_pairs} (probe worst {per_view} "
-              f"pairs/view × {n_views} views × 1.5 headroom)")
+              f"pairs/view × {n_views} views × 1.5 headroom{split})")
         return max_pairs
 
     def _select(self):
@@ -288,6 +329,7 @@ class Trainer:
         """Train from ``first_iter`` to ``iterations``; ``mesh`` (a sub-frame
         ``parallel.shard.Mesh``) shards each step's views over its ranks."""
         t_start = time.perf_counter()
+        self._mesh = mesh
         iterations = iterations or self.ocfg.iterations
         if self.rcfg.max_pairs <= 0:
             with span("train.autosize"):
@@ -350,8 +392,10 @@ class Trainer:
 
     def _drain(self, state: step_lib.TrainState, rcfg: RasterizeConfig):
         """Copy the pending metrics to the host in one transfer and act on
-        them in order: NaN guard, capacity growth, pair budget, log."""
+        them in order: NaN guard, capacity growth, pair budget (or sub-frame
+        groups), log."""
         pending = self._pending
+        regrouped = False
         f64 = lambda x: x.to(self.device, torch.float64)   # noqa: E731
         host = torch.stack([torch.stack([f64(getattr(m, k)) for k in _DRAINED]
                                         + [f64(m.densify.n_dropped)])
@@ -371,7 +415,9 @@ class Trainer:
                     f"non-finite loss {vals['loss']} at iteration {it_p} (cam {cam_p}) — "
                     f"state dumped to {snap}")
             num_active, num_pairs = int(vals["num_active"]), int(vals["num_pairs"])
-            count("staging.pairs_emitted", num_pairs)
+            count("staging.pairs_emitted", int(vals["pairs_staged"]))
+            if vals["pairs_recomputed"]:
+                count("staging.pairs_recomputed", int(vals["pairs_recomputed"]))
             # ---- capacity: pre-grow near full while densification can
             # still insert (dropped insertions are lost, not retried); the
             # reactive path catches a burst that outran it, but not twice
@@ -393,9 +439,18 @@ class Trainer:
                 print(f"[pairs] OVERFLOW at iter {it_p}: {num_pairs} pairs > capacity "
                       f"{rcfg.max_pairs} — step trained on a truncated pair list "
                       f"(total {int(vals['overflow_count'])} such steps)")
-            if num_pairs > 0.85 * rcfg.max_pairs:
+            regroup = (rcfg.max_pairs * 2 > SLOT_CEILING and self.batched_render
+                       and self._mesh is None and self.subframe_groups < self.mcfg.n_subframes)
+            if num_pairs > 0.85 * rcfg.max_pairs and not regroup:
                 rcfg = dataclasses.replace(rcfg, max_pairs=rcfg.max_pairs * 2)
                 print(f"[pairs] max_pairs → {rcfg.max_pairs}")
+            elif num_pairs > 0.85 * rcfg.max_pairs and not regrouped:
+                # at the ceiling, one more group (once a drain: the later
+                # steps of this drain were staged in the old groups)
+                regrouped = True
+                self.subframe_groups += 1
+                print(f"[pairs] sub-frame groups → {self.subframe_groups} (max_pairs "
+                      f"{rcfg.max_pairs} at the {SLOT_CEILING}-slot ceiling)")
             if rcfg.backend == "xla" and int(vals["max_per_tile"]) > rcfg.k_max:
                 rcfg = dataclasses.replace(rcfg, k_max=rcfg.k_max * 2)
                 print(f"[pairs] k_max → {rcfg.k_max}")

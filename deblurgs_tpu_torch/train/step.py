@@ -2,7 +2,9 @@
 
 Counterpart of ``deblurgs_tpu/train/step.py``. One call renders all
 sub-frames of the step's blurry observations (one batched render: K3, K1;
-on the xla and oracle backends one render a view),
+on the xla and oracle backends one render a view; or, with
+``subframe_groups`` G > 1, G renders of consecutive sub-frames whose
+staging is freed after their forward and staged again in the backward),
 synthesises the blur as their mean, computes the loss (L1 + temporal
 smoothness + depth-TV + opacity hinge), backpropagates through the
 rasterizer (K2, K4) and the Bézier camera curves by autograd, clips,
@@ -50,7 +52,7 @@ from deblurgs_tpu_torch.ops.rasterize import RasterizeConfig, render, render_bat
 from deblurgs_tpu_torch.parallel import gauss_shard, shard
 from deblurgs_tpu_torch.train import losses, optim, schedules
 from deblurgs_tpu_torch.train.config import OptimizationConfig
-from deblurgs_tpu_torch.utils.profiling import span
+from deblurgs_tpu_torch.utils.profiling import count, span
 
 
 class TrainState(NamedTuple):
@@ -84,10 +86,17 @@ class TrainStatics:
     batched_render: bool = False  # ONE render_batch for all views (pallas
                                   # only; else, and on xla/oracle, a loop)
     cams_per_step: int = 1     # B training cameras per step
+    subframe_groups: int = 1   # G renders of consecutive sub-frames a step,
+                               # each staged again in the backward (G > 1)
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, shard.Mesh):
             raise TypeError(f"mesh must be a parallel.shard.Mesh, got {type(self.mesh).__name__}")
+        if not 1 <= self.subframe_groups <= self.n_sub:
+            raise ValueError(f"subframe_groups={self.subframe_groups} must lie in "
+                             f"[1, n_sub={self.n_sub}]")
+        if self.subframe_groups > 1 and self.mesh is not None:
+            raise ValueError("sub-frame groups are not sharded over a mesh")
 
 
 class StepMetrics(NamedTuple):
@@ -98,11 +107,13 @@ class StepMetrics(NamedTuple):
     depth_tv: torch.Tensor
     psnr: torch.Tensor
     num_active: torch.Tensor
-    num_pairs: torch.Tensor
+    num_pairs: torch.Tensor        # the largest staging's pairs (overflow if > max_pairs)
     max_per_tile: torch.Tensor
     overflowed: torch.Tensor       # [] bool: this step truncated pairs
     overflow_count: torch.Tensor   # [] int32: cumulative truncated steps
     densify: densify_lib.DensifyReport
+    pairs_staged: torch.Tensor     # [] pairs of every staging, the backward's included
+    pairs_recomputed: torch.Tensor  # [] pairs the backward staged again
 
 
 class StepDraws(NamedTuple):
@@ -200,6 +211,88 @@ def _render_views(cams: CameraArrays, rin, active, vsp, bg, st: TrainStatics):
     return shard.sharded_subframe_render(one, _view_mesh(st))(None, cams, vsp)
 
 
+def group_bounds(n_sub: int, groups: int) -> list:
+    """The sub-frame ranges [start, stop) of ``groups`` groups of nearly
+    equal size, consecutive sub-frames together, the larger groups first."""
+    size, extra = divmod(n_sub, groups)
+    return [(g * size + min(g, extra), (g + 1) * size + min(g + 1, extra))
+            for g in range(groups)]
+
+
+_RIN = ("means3d", "scales", "rotations", "opacities", "shs")
+
+
+class _GroupRender(torch.autograd.Function):
+    """One group's render that keeps none of its staging, compositing
+    buffers or preprocess intermediates: the forward renders without
+    autograd; the backward renders the group again (``group.recompute``)
+    with autograd and sends the group's share of the image and depth
+    cotangents through it. The recomputed pairs are added to ``tally``
+    on the device."""
+
+    @staticmethod
+    def forward(ctx, render, tally, active, *inputs):
+        ctx.render, ctx.tally, ctx.active = render, tally, active
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        images, depths, radii, num_pairs, max_per_tile = render(active, *inputs)
+        ctx.mark_non_differentiable(radii, num_pairs, max_per_tile)
+        return images, depths, radii, num_pairs, max_per_tile
+
+    @staticmethod
+    def backward(ctx, d_images, d_depths, *_):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+            with span("group.recompute"):
+                images, depths, _, num_pairs, _ = ctx.render(ctx.active, *leaves)
+            ctx.tally += torch.sum(num_pairs)
+            outs = [(o, d) for o, d in ((images, d_images), (depths, d_depths)) if d is not None]
+            grads = iter(torch.autograd.grad([o for o, _ in outs],
+                                             [x for x in leaves if x.requires_grad],
+                                             [d for _, d in outs], allow_unused=True))
+        return (None, None, None) + tuple(next(grads) if x.requires_grad else None
+                                          for x in leaves)
+
+
+def _render_group(lo: int, hi: int, cams: CameraArrays, rin, active, vsp, bg, tally,
+                  st: TrainStatics):
+    """Images, depths, radii and pair counts of sub-frames [lo, hi) of
+    every camera of the step, rendered by :class:`_GroupRender`."""
+    B, F = st.cams_per_step, st.n_sub
+
+    def part(x):
+        return x.reshape((B, F) + x.shape[1:])[:, lo:hi].reshape((-1,) + x.shape[1:])
+
+    def render(active_, *inputs):
+        r = dict(zip(_RIN, inputs[:5]))
+        return _render_views(CameraArrays(*inputs[5:8]), r, active_, inputs[8], inputs[9], st)
+
+    with span("step.group"):
+        return _GroupRender.apply(render, tally, active, *(rin[k] for k in _RIN),
+                                  *(part(x) for x in cams), part(vsp), bg)
+
+
+def _render_groups(cams: CameraArrays, rin, active, vsp, bg, st: TrainStatics):
+    """:func:`_render_views` in ``st.subframe_groups`` groups of consecutive
+    sub-frames, each through :func:`_render_group`: the outputs of every
+    view in order, the groups' pair counts and longest lists stacked, and a
+    device tally that the backward fills with the pairs it stages again."""
+    B, F = st.cams_per_step, st.n_sub
+    tally = torch.zeros((), dtype=torch.int64, device=vsp.device)
+    outs = [_render_group(lo, hi, cams, rin, active, vsp, bg, tally, st)
+            for lo, hi in group_bounds(F, st.subframe_groups)]
+
+    def join(xs):
+        return torch.cat([x.reshape((B, -1) + x.shape[1:]) for x in xs], 1).reshape(
+            (B * F,) + xs[0].shape[1:])
+
+    images, depths, radii, num_pairs, max_per_tile = zip(*outs)
+    flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])   # noqa: E731
+    return join(images), join(depths), join(radii), flat(num_pairs), flat(max_per_tile), tally
+
+
 class Forward(NamedTuple):
     """What :func:`forward_loss` hands to :func:`backward` and :func:`apply`."""
 
@@ -209,8 +302,9 @@ class Forward(NamedTuple):
     gt_linear: torch.Tensor
     parts: tuple                # (l1, t_smooth, hinge, depth_tv)
     radii: torch.Tensor
-    num_pairs: torch.Tensor
+    num_pairs: torch.Tensor     # each staging's pairs ([] for one batched render)
     max_per_tile: torch.Tensor
+    recomputed: torch.Tensor | None = None  # [] pairs the backward stages again (G > 1)
 
 
 def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch.Tensor,
@@ -260,8 +354,13 @@ def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch
         nu = motion_lib.sample_nus(rmotion, cam_idx, mcfg,
                                    draws.nu_u if st.random_sample else None)
     cams = motion_lib.subframe_cameras_batch(rmotion, cam_idx, nu, proj, mcfg)
-    images, depths, radii, num_pairs, max_per_tile = _render_views(
-        cams, rin, active, vsp, bg, st)
+    recomputed = None
+    if st.subframe_groups > 1:
+        images, depths, radii, num_pairs, max_per_tile, recomputed = _render_groups(
+            cams, rin, active, vsp, bg, st)
+    else:
+        images, depths, radii, num_pairs, max_per_tile = _render_views(
+            cams, rin, active, vsp, bg, st)
     if vmesh is not None:
         # every rank computes the whole loss from every view
         images = shard.gather_rows(vmesh, images)
@@ -286,7 +385,7 @@ def forward_loss(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch
              + ocfg.lambda_hinge * hinge)
     return Forward(total=total, leaves=tuple(params) + tuple(motion) + (vsp,), blurred=blurred,
                    gt_linear=gt_linear, parts=(l1, t_smooth, hinge, depth_tv), radii=radii,
-                   num_pairs=num_pairs, max_per_tile=max_per_tile)
+                   num_pairs=num_pairs, max_per_tile=max_per_tile, recomputed=recomputed)
 
 
 def backward(fwd: Forward):
@@ -393,7 +492,8 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
 
     # --- in-step overflow detection (pair capacity; on xla also the walk's
     # k_max, past which a tile's list is truncated)
-    overflowed = torch.max(fwd.num_pairs) > st.rcfg.max_pairs
+    num_pairs = torch.max(fwd.num_pairs)
+    overflowed = num_pairs > st.rcfg.max_pairs
     if st.rcfg.backend == "xla":
         overflowed = overflowed | (torch.max(fwd.max_per_tile) > st.rcfg.k_max)
     overflow_count = state.overflow_count + overflowed.to(torch.int32)
@@ -403,9 +503,12 @@ def apply(state: TrainState, fwd: Forward, grads, st: TrainStatics, draws: StepD
         psnr=losses.psnr(torch.clamp(fwd.blurred, 0, 1), torch.clamp(fwd.gt_linear, 0, 1)),
         num_active=(gm.num_active(aux.active) if gmesh is None
                     else gauss_shard.global_active(gmesh, aux.active)),
-        num_pairs=torch.max(fwd.num_pairs),
+        num_pairs=num_pairs,
         max_per_tile=torch.max(fwd.max_per_tile), overflowed=overflowed,
-        overflow_count=overflow_count, densify=report)
+        overflow_count=overflow_count, densify=report,
+        pairs_staged=(num_pairs if fwd.recomputed is None
+                      else torch.sum(fwd.num_pairs) + fwd.recomputed),
+        pairs_recomputed=zero if fwd.recomputed is None else fwd.recomputed)
     new_state = TrainState(params=new_params, motion=new_motion, aux=aux, adam_g=adam_g,
                            adam_m=adam_m, step=step + 1, rng=state.rng,
                            overflow_count=overflow_count)
@@ -429,6 +532,8 @@ def train_step(state: TrainState, gt_image: torch.Tensor, cam_idx, proj: torch.T
             generator = torch.Generator(device=state.params.xyz.device).manual_seed(
                 int(state.step))
         draws = draw_step(state, st, gt_image.shape, generator)
+    count("step.calls")
+    count("step.subframe_groups", st.subframe_groups)
     with span("step.forward"):
         fwd = forward_loss(state, gt_image, cam_idx, proj, st, draws)
     with span("step.backward"):

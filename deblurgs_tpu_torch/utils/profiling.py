@@ -15,7 +15,10 @@ trace's device time put down to its spans (counterpart of
   kernel wrappers count their launches as ``kernel.K1`` … ``kernel.K6``;
   the staging counts the slots it sorts (``staging.slots``) and the
   training loop's drain the pairs the steps emitted
-  (``staging.pairs_emitted``).
+  (``staging.pairs_emitted``), of the same stagings: with sub-frame groups
+  the backward's stagings too, whose pairs also go to
+  ``staging.pairs_recomputed``. The train step counts its calls
+  (``step.calls``) and their sub-frame groups (``step.subframe_groups``).
 - :func:`trace` records a trace for TensorBoard or Perfetto.
 
 A span is a function-scope range of the profiler (``_RecordFunctionFast``),
@@ -40,6 +43,7 @@ SPANS = (
     "train.autosize", "train.iteration", "train.select", "train.draws", "train.step",
     "train.drain", "drain.grow_capacity",
     "step.forward", "step.backward", "step.apply", "apply.densify", "apply.adam",
+    "step.group", "group.recompute",
     "render.preprocess", "render.staging", "staging.compact", "staging.broadcast",
     "staging.sort", "render.composite", "render.compose",
     "blend.backward", "backward.composite", "backward.reduce",
