@@ -11,8 +11,9 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
 3. parity     each kernel against its plain PyTorch version on the card at a
               mid size (256×256, 4k Gaussians, F = 3, tile 32 and 16): K3,
               its key epilogue (against ``slot_keys_ref``, and the staged
-              list against the plain keys' sort) and K1 bit for bit, n_con
-              included, for need_n_contrib on and off and for ``fast``;
+              list, sorted through K7, against the plain path) and K1 bit
+              for bit, n_con included, for need_n_contrib on and off and
+              for ``fast``;
 4. slice      the blurry render at full width (1920×1080, 100k Gaussians,
               SH degree 2, one order-9 se3 curve, F = 21, tile 32): the
               batched composition of the training step (subframe_cameras →
@@ -64,8 +65,9 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               versions on 64 tiles;
 12. yardstick each kernel timed beside its plain version, its bound and, for
               K3 and K4, the one PyTorch call that computes the same function;
+              K7 beside the sort it follows, held bitwise to its plain version;
               K1 also at tile 16 on the slice's scene; at the train step's
-              lists K1, K2, K3 and K4, K1 and K2 with ptxas's registers and
+              lists K1, K2, K3, K7 and K4, K1 and K2 with ptxas's registers and
               their pair loops' SASS counts, K1's (warp, pair) visits under
               its schedule and the one before it (``forward_schedule``, its
               outputs held bitwise to the kernel's) and the issue rate they
@@ -99,7 +101,7 @@ Builds the port's hand-written kernels from ``deblurgs_tpu_torch/csrc``
               plain versions on one step's inputs at the loop's budget (K3,
               its key epilogue, the staged list and K4 in full, K1 and K2 on
               64 sampled tiles), the keyed K3 timed beside K3 alone and the
-              plain key passes; launches a
+              plain key passes, K7 beside its plain version; launches a
               step, peak memory and each stage's seconds.
 14. backends  the xla and oracle backends and the native host library:
               (a) the eval phase's run, whose ``cfg_args`` has no
@@ -343,9 +345,11 @@ STAGED_CHECKED = ("fields", "s_tile", "s_gc", "tile_start", "tile_stop", "max_pe
 def check_keys(torch, where: str, bcfg, c, fslot, keys, staged=None) -> dict:
     """K3's key epilogue (``keys``, from ``broadcast_keys``) against its
     plain version ``slot_keys_ref`` on K3's rows ``fslot`` and, where
-    ``staged`` (``sort_slots`` on ``keys``) is given, every output of the
-    staging against ``sort_slots``' plain path: bit for bit. Returns the
-    slots, the pairs emitted and the slots the keys keep."""
+    ``staged`` (``sort_slots`` on ``keys``, through K7) is given, every
+    output of the staging against the plain path (``sort_slots`` on the
+    plain keys with K7's plain version ``permute_sorted_ref``): bit for
+    bit. Returns the slots, the pairs emitted and the slots the keys
+    keep."""
     from deblurgs_tpu_torch.ops import cuda_blend
 
     want = cuda_blend.slot_keys_ref(bcfg, fslot, c)
@@ -354,10 +358,10 @@ def check_keys(torch, where: str, bcfg, c, fslot, keys, staged=None) -> dict:
             raise AssertionError(f"K3 keys {where}: {name} differs from slot_keys_ref")
     kept = int((want.tile < bcfg.total_tiles).sum())
     if staged is not None:
-        plain = cuda_blend.sort_slots(bcfg, fslot, c, want)
+        plain = cuda_blend.sort_slots(bcfg, fslot, c, want, permute=cuda_blend.permute_sorted_ref)
         for name in STAGED_CHECKED:
             if not same_bits(torch, getattr(staged, name), getattr(plain, name)):
-                raise AssertionError(f"staging {where}: {name} differs from the plain keys' sort")
+                raise AssertionError(f"staging {where}: {name} differs from the plain path")
         del plain
     del want
     return dict(slots=fslot.shape[1], emitted=int(c.total), kept=kept)
@@ -596,7 +600,8 @@ def plain_blend(bcfg, flat, bg):
 
     c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
     fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
-    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c))
+    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c),
+                               permute=cuda_blend.permute_sorted_ref)
     out = cuda_blend_mixed.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
     return tile_blend.compose(bcfg, *out, bg)
 
@@ -652,7 +657,7 @@ def read_counts() -> dict:
 
     c = profiling.counters()
     return {k: c.get(f"kernel.{k}", 0)
-            for k in ("K3", "K3.keys", "K1", "K2", "K4", "K5", "K6")}
+            for k in ("K3", "K3.keys", "K7", "K1", "K2", "K4", "K5", "K6")}
 
 
 # ---------------------------------------------------------------------------
@@ -788,7 +793,7 @@ def phase_slice(torch, dev):
         launches = read_counts()
         if launches["K2"] or launches["K4"] or launches["K5"] or launches["K6"]:
             raise AssertionError(f"the mixed forward path launched another kernel: {launches}")
-        for name in ("K3", "K3.keys", "K1"):
+        for name in ("K3", "K3.keys", "K7", "K1"):
             n = launches[name]
             if n != 4 + F:
                 raise AssertionError(f"{name} launched {n} times on the main path, "
@@ -922,7 +927,8 @@ def plain_blend_grads(torch, bcfg, flat, bg, d_img, d_dep):
 
     c = cuda_blend.compact_table(bcfg, *flat, bcfg.max_pairs)
     fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
-    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c))
+    st = cuda_blend.sort_slots(bcfg, fslot, c, cuda_blend.slot_keys_ref(bcfg, fslot, c),
+                               permute=cuda_blend.permute_sorted_ref)
     C, D, T, _ = cbm.forward_ref(bcfg, st.fields, st.tile_start, st.tile_stop)
     dl_pix = tile_blend._images_to_tiles(bcfg, d_img)
     dl_d = tile_blend._images_to_tiles(bcfg, d_dep)
@@ -1301,6 +1307,36 @@ def k3_yardstick(torch, bcfg, c, iters: int) -> dict:
                 bound_ms=bound, share_of_bound=bound / ms)
 
 
+def k7_yardstick(torch, bcfg, c, iters: int) -> dict:
+    """K7 (``permute_sorted``, the launch the staging makes after its sort)
+    on the sort of a compact table ``c``'s keys: its outputs held bitwise to
+    its plain version ``permute_sorted_ref``, timed beside it and beside the
+    sort it follows, with its byte bound: 8 B of order and 8 B of key in,
+    8 B of rank and 40 B of rows 0-9 read at the slot's pre-sort position
+    (or its table row), 64 B of fields, 8 B of tile id, 8 B of rank and 4 B
+    of inverse out, 148 B a slot."""
+    from deblurgs_tpu_torch.ops import cuda_blend
+
+    fslot, keys = cuda_blend.broadcast_keys(bcfg, c)
+    srt = torch.sort(keys.key, stable=True)
+    got = cuda_blend.permute_sorted(bcfg, fslot, c, keys, srt)
+    want = cuda_blend.permute_sorted_ref(bcfg, fslot, c, keys, srt)
+    for name, g, w in zip(("fields", "s_tile", "s_gc", "inv"), got, want):
+        if not same_bits(torch, g, w):
+            raise AssertionError(f"K7 yardstick: {name} differs from permute_sorted_ref")
+    kept = int((got[1] < bcfg.total_tiles).sum())
+    del got, want
+    ms = cuda_ms(lambda: cuda_blend.permute_sorted(bcfg, fslot, c, keys, srt), iters)
+    plain_ms = cuda_ms(lambda: cuda_blend.permute_sorted_ref(bcfg, fslot, c, keys, srt), 3)
+    sort_ms = cuda_ms(lambda: torch.sort(keys.key, stable=True), 3)
+    max_pairs = fslot.shape[1]
+    nbytes = 148 * max_pairs
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, sort_ms=sort_ms, max_pairs=max_pairs,
+                emitted=int(c.total), kept=kept, bytes=nbytes, bound_ms=bound,
+                share_of_bound=bound / ms)
+
+
 def k1_schedule(torch, bcfg, staged, where: str) -> dict:
     """K1's schedule walked on these lists (``forward_schedule``): its
     outputs held bitwise to the kernel's, the (warp, pair) visits of the
@@ -1358,6 +1394,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
 
     bcfg, st, c = sl["bcfg"], sl["staged"], sl["compact"]
     k3 = k3_yardstick(torch, bcfg, c, 20)
+    k7 = k7_yardstick(torch, bcfg, c, 20)
     k3["previous_ms_without_keys"] = K3_PREVIOUS_MS
     k3["pr6_ms_without_keys"] = K3_PR6_MS["slice"]
 
@@ -1385,7 +1422,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     k1_t16 = k1_schedule(torch, b16, st16, "slice, tile 16")
     k1_t16["ms"] = cuda_ms(lambda: cuda_blend_mixed.forward_mixed(b16, st16), 10)
     k1_t16["layout"] = cuda_blend_mixed.forward_layout(16, 16)
-    emit("yardstick", K3=k3,
+    emit("yardstick", K3=k3, K7=k7,
          K1=dict(ms=k1_ms, previous_ms=K1_PREVIOUS_MS["slice"], plain_ms=k1_plain,
                  staged_pairs=staged_pairs, bytes=k1_bytes, bytes_ms=k1_byte_ms,
                  ops=EVAL_OPS * evals, ops_ms=k1_op_ms, **k1),
@@ -1445,6 +1482,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
     # K3 on the same lists
     k3_train = k3_yardstick(torch, bcfg2, k["compact"], 10)
     k3_train["pr6_ms_without_keys"] = K3_PR6_MS["train_lists"]
+    k7_train = k7_yardstick(torch, bcfg2, k["compact"], 10)
 
     # K4 on the main path (the staging's runs, sums to original rows) and by
     # rank array (the wrapper's sort), the plain version and index_add_
@@ -1486,7 +1524,7 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
                              bytes=k1_train_bytes, bound_ms=k1_train_bound,
                              bound_by="operations" if k2_op_ms >= k1_train_bytes
                              / HBM_BYTES_PER_S * 1e3 else "bytes", **k1_train),
-         K3_train_lists=k3_train,
+         K3_train_lists=k3_train, K7_train_lists=k7_train,
          K4=dict(ms=k4_ms, previous_ms=K4_PREVIOUS_MS, by_rank_array_ms=k4_rank_ms,
                  plain_ms=k4_plain, library_ms=k4_lib,
                  library_call="torch.zeros((P+1, 10)).index_add_(0, rank, grads[:10].T)",
@@ -1500,6 +1538,12 @@ def phase_yardstick(torch, sl, k3_err: float, k1_err: float, tr=None, k2_err=0.0
          "replaces": "deblurgs_tpu/ops/pallas_blend.py:199", "launches": launches["K3"],
          "max_abs_err": k3_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": k3["library_ms"]},
+        {"name": "K7 permute_sorted", "route": "cuda",
+         "source": "deblurgs_tpu_torch/csrc/permute_sorted.cu",
+         "replaces": "none: deblurgs_tpu/ops/pallas_blend.py:344-361 (_sort_stage's jnp)",
+         "launches": launches["K7"], "max_abs_err": 0.0, "ms": k7["ms"],
+         "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "K1 forward_mixed", "route": "cuda",
          "source": "deblurgs_tpu_torch/csrc/forward_mixed.cu",
          "replaces": "deblurgs_tpu/ops/pallas_blend_mixed.py:510", "launches": launches["K1"],
@@ -1680,8 +1724,8 @@ def phase_train_lockstep(torch, dev):
         pairs.append(int(metrics.num_pairs))
     torch.cuda.synchronize()
     launches = read_counts()
-    want = {"K3": 2 * F, "K3.keys": 2 * F, "K1": 0, "K2": 0, "K4": 2 * F, "K5": 2 * F,
-            "K6": 2 * F}
+    want = {"K3": 2 * F, "K3.keys": 2 * F, "K7": 2 * F, "K1": 0, "K2": 0, "K4": 2 * F,
+            "K5": 2 * F, "K6": 2 * F}
     if launches != want:
         raise AssertionError(f"lockstep train step launches {launches}, expected {want}")
     if not all(math.isfinite(x) for x in losses_seen) or int(s.overflow_count):
@@ -1925,7 +1969,7 @@ def phase_eval(torch, dev):
                   for k in ("error", "gt", "renders") for i in range(len(test))]
     if artifacts != sorted(want_files):
         raise AssertionError(f"evaluate wrote {artifacts}")
-    for name in ("K3", "K4", "K5", "K6"):
+    for name in ("K3", "K7", "K4", "K5", "K6"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by evaluation: {launches}")
     if launches["K1"] or launches["K2"]:
@@ -2334,6 +2378,7 @@ def phase_train_cli(torch, dev, train_step_ms):
     keys_k3 = check_keys(torch, "train_cli", bcfg, k["compact"], fslot, keys, staged)
     del fslot, keys
     keys_k3["yardstick"] = k3_yardstick(torch, bcfg, k["compact"], 10)
+    k7 = k7_yardstick(torch, bcfg, k["compact"], 10)
     tiles = torch.from_numpy(np.random.default_rng(SEED + 15).choice(
         bcfg.total_tiles, 64, replace=False)).to(dev)
     err_k1 = check_k1(torch, "train_cli (64 tiles)", bcfg, staged,
@@ -2343,7 +2388,7 @@ def phase_train_cli(torch, dev, train_step_ms):
     err_k2 = check_k2(torch, "train_cli (64 tiles)", bcfg, staged, *kargs, pg, tiles=tiles)
     err_k4 = check_k4(torch, "train_cli", staged, pg, k["P"])
     kernel_check = dict(max_pairs=staged.fields.shape[1], num_pairs=int(k["flat"][-1].sum()),
-                        err_k3=err_k3, k3_keys=keys_k3, err_k1_sampled_tiles=err_k1,
+                        err_k3=err_k3, k3_keys=keys_k3, k7=k7, err_k1_sampled_tiles=err_k1,
                         err_k2_sampled_tiles=err_k2, err_k4=err_k4)
     del k, staged, pg, kargs
 
@@ -2362,7 +2407,7 @@ def phase_train_cli(torch, dev, train_step_ms):
         raise AssertionError(f"drained losses: {cli_seen['loss']}")
     if cli_seen["overflowed"] or time_txt[-1] != "Overflowed iterations = 0":
         raise AssertionError(f"pair overflow in training: {time_txt}")
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K7", "K4"):
         if launches[name] < 40:
             raise AssertionError(f"{name} launched {launches[name]} times by the training CLI")
     if resumed.step != 25 or int(state.step) != first + 40 or first % 10 != 1:
@@ -2379,7 +2424,7 @@ def phase_train_cli(torch, dev, train_step_ms):
         raise AssertionError(f"results.json: {results_json}")
     if not all(math.isfinite(results[k]["PSNR"]) for k in ("unfit", "fit")):
         raise AssertionError(f"evaluate: {results}")
-    for name in ("K1", "K2", "K3", "K3.keys", "K4"):
+    for name in ("K1", "K2", "K3", "K3.keys", "K7", "K4"):
         if timed_launches[name] != 20:
             raise AssertionError(f"{name}: {timed_launches[name]} launches in 20 iterations")
     emit("train_cli", width=EVAL_SIZE[0], height=EVAL_SIZE[1], points=EVAL_SIZE[2],
@@ -3065,7 +3110,7 @@ def phase_recovery(torch, dev) -> dict:
         raise AssertionError(f"recovery: the scene kept its initial {n_init} points")
     if ckpts != ["state_ckpt_400.npz", "state_ckpt_600.npz"]:
         raise AssertionError(f"recovery: checkpoints kept {ckpts}")
-    want = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 1}
+    want = {"K1": 1, "K2": 1, "K3": 1, "K7": 1, "K4": 1, "K5": 1, "K6": 1}
     if any(launches[k] < n for k, n in want.items()) or launches["K2"] != args.iters \
             or launches["K6"] != args.pose_refine_iters * args.n_cams:
         raise AssertionError(f"recovery launches: {launches}")
@@ -3181,8 +3226,8 @@ def phase_r5_jax_scene(torch, dev) -> dict:
         if not gap <= bound:
             missed.append(f"{key} by {gap - bound:.3e}")
     n_renders = args.n_cams * (args.n_sub * args.gt_oversample + 1) + 2 * args.n_cams
-    want_launches = {"K3": n_renders, "K3.keys": n_renders, "K1": n_renders, "K2": 0, "K4": 0,
-                     "K5": 0, "K6": 0}
+    want_launches = {"K3": n_renders, "K3.keys": n_renders, "K7": n_renders, "K1": n_renders,
+                     "K2": 0, "K4": 0, "K5": 0, "K6": 0}
 
     # ---- K3, K1 and K5 on one view of JAX's state: camera 0's learned mid camera
     with torch.no_grad():
@@ -3214,7 +3259,8 @@ def phase_r5_jax_scene(torch, dev) -> dict:
          err_k1=err_k1, err_k3=err_k3, k3_keys=keys_k3, err_k5=err_k5)
     if missed:
         raise AssertionError(f"r5_jax_scene: JAX's report missed: {', '.join(missed)}")
-    if launches["K3"] < 1 or launches["K1"] < 1 or launches["K3.keys"] != launches["K3"]:
+    if (launches["K3"] < 1 or launches["K1"] < 1 or launches["K3.keys"] != launches["K3"]
+            or launches["K7"] != launches["K3"]):
         raise AssertionError(f"r5_jax_scene launches: {launches}")
     return {"K1": err_k1, "K3": err_k3, "K5": err_k5}
 

@@ -10,8 +10,8 @@ trained run) rebuilt on PyTorch, with hand-written CUDA kernels for the
 hot spots:
 
 - ``ops/cuda_blend.py``: pair staging (expansion, tile cull, two-key sort),
-  the segmented-broadcast kernel K3 (with the slots' sort keys) and the
-  gradient reduce K4
+  the segmented-broadcast kernel K3 (with the slots' sort keys), the
+  sorted pair list's kernel K7 and the gradient reduce K4
   (counterpart of ``deblurgs_tpu/ops/pallas_blend.py``);
 - ``ops/cuda_blend_mixed.py``: the front-to-back compositing kernel K1 and
   its backward K2 (counterpart of ``deblurgs_tpu/ops/pallas_blend_mixed.py``);

@@ -5,8 +5,9 @@
                           space), ``bin_gaussians``, range search.
 3. ``cuda_blend``       — staging: segmented broadcast with the slots'
                           tile ids, exact tile cull and sort keys (kernel
-                          K3), stable (tile, depth) sort; the
-                          gradient reduce by compact rank (kernel K4).
+                          K3), stable (tile, depth) sort, the sorted
+                          pair list (kernel K7); the gradient reduce by
+                          compact rank (kernel K4).
 4. ``cuda_blend_mixed`` — front-to-back compositing of stacked views
                           (kernel K1) and its per-pair gradients (kernel K2).
 5. ``cuda_blend_lockstep`` — the same for one view, ``layout="lockstep"``

@@ -1,5 +1,5 @@
-"""Pair staging, the segmented-broadcast kernel (K3) and the gradient
-reduce (K4).
+"""Pair staging, the segmented-broadcast kernel (K3), the sorted pair
+list's kernel (K7) and the gradient reduce (K4).
 
 Counterpart of ``deblurgs_tpu/ops/pallas_blend.py``: ``broadcast_fields``
 (K3, ``pallas_blend.py:179-233``; here :func:`broadcast_keys`), ``_tile_visible`` (``:236-275``),
@@ -11,8 +11,10 @@ the sorted ``fields``, ``tile_start``/``tile_stop``, ``s_gc``, ``ids`` and
 ``seg``). On the card K3's epilogue also works out what the sort reads
 (each slot's tile id, the exact tile cull, the sentinels and the packed
 key: :func:`broadcast_keys`), in place of the slot-sized PyTorch passes
-of its plain version :func:`slot_keys_ref`. The TPU grid bookkeeping of
-that module has no counterpart:
+of its plain version :func:`slot_keys_ref`, and after the sort K7 writes
+the sorted pair list in one pass (:func:`permute_sorted`), in place of
+the gathers and ``cat`` of :func:`permute_sorted_ref`. The TPU grid
+bookkeeping of that module has no counterpart:
 ``prepare_mixed``'s step maps, and lockstep's ``_step_maps`` with its
 ``step_*``, ``chunk_first`` and ``owner`` arrays (``:116-176, 397-409``),
 parity-interleaved buffers, one-hot routing. The kernels walk each tile's
@@ -292,19 +294,18 @@ def broadcast_keys(cfg, c: Compact) -> tuple[torch.Tensor, SlotKeys]:
     return out, keys
 
 
-def sort_slots(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys) -> Staged:
-    """Staging, second half (``pallas_blend.py:314-369``): stable (tile,
-    depth) sort of the slots by ``keys`` (K3's epilogue, or its plain
-    version :func:`slot_keys_ref` of ``fslot``, the slot-space rows that K3
-    broadcast) → per-tile ranges. The sort's inverse (``inv``) and
-    ``c.seg`` go with the result for K4."""
+def permute_sorted_ref(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys, srt) -> tuple:
+    """Plain version of K7 (``pallas_blend.py:344-361``): the sorted pair
+    list from the sort ``srt`` of ``keys.key`` (``torch.sort``'s values and
+    indices; this version reads the indices alone, and ``fslot`` where K7
+    reads a kept slot's rows from ``c.ctable``) → ``(fields, s_tile, s_gc,
+    inv)`` as :class:`Staged` holds them."""
     dev = fslot.device
     num_tiles = cfg.num_tiles
-    total_tiles = cfg.total_tiles
     max_pairs = fslot.shape[1]
     f32 = torch.float32
+    order = srt.indices
 
-    order = torch.sort(keys.key, stable=True).indices
     inv = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     inv[order] = torch.arange(max_pairs, dtype=torch.int32, device=dev)
     s_tile = keys.tile[order]
@@ -319,8 +320,74 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys) -> Staged:
     fields = torch.cat(
         [fslot[:9, order], s_depth[None], s_tile.to(f32)[None], tx0[None], ty0[None],
          torch.zeros((NFIELD - 13, max_pairs), dtype=f32, device=dev)], dim=0)
+    return fields, s_tile, s_gc, inv
 
-    tq = torch.arange(total_tiles, dtype=torch.int64, device=dev)
+
+def permute_sorted(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys, srt) -> tuple:
+    """K7: :func:`permute_sorted_ref`'s outputs bit for bit in one pass
+    over the sorted slots (``csrc/permute_sorted.cu``): the tile id taken
+    from the sorted key (``key >> 32``), the rank read at each slot's
+    pre-sort position, rows 0-9 from there too (a kept slot's from its row
+    of ``c.ctable``, which K3 copied into ``fslot``), rows 10-15 computed,
+    and the sort's inverse scattered. ``fslot`` and ``keys`` must be the
+    staging's own, K3's rows and keys of ``c``. No host wait.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    if fslot.device.type == "cpu":
+        return permute_sorted_ref(cfg, fslot, c, keys, srt)
+    dev = fslot.device
+    if dev.type != "cuda":
+        raise ValueError(f"permute_sorted: expected a CUDA or CPU tensor, got {dev}")
+    if fslot.dtype != torch.float32 or fslot.dim() != 2 or fslot.shape[0] != NFIELD:
+        raise ValueError(f"permute_sorted: fslot must be [{NFIELD}, max_pairs] float32, "
+                         f"got {tuple(fslot.shape)} {fslot.dtype}")
+    ctable = c.ctable
+    if (ctable.device != dev or ctable.dtype != torch.float32 or ctable.dim() != 2
+            or ctable.shape[1] != NFIELD):
+        raise ValueError(f"permute_sorted: ctable must be [P, {NFIELD}] float32 on {dev}")
+    ctable = ctable.contiguous()
+    if ctable.data_ptr() % 16:         # the kernel reads 16 B vectors of it
+        ctable = ctable.clone()
+    max_pairs = fslot.shape[1]
+    if max_pairs >= 2 ** 31 - 1:
+        raise ValueError("permute_sorted: the sort's inverse is int32")
+    key, order = srt.values.contiguous(), srt.indices.contiguous()
+    reads = (keys.depth_key, keys.gc_sent, key, order)
+    want = (torch.float32, torch.int64, torch.int64, torch.int64)
+    if any(x.device != dev or x.dtype != d or x.shape != (max_pairs,)
+           for x, d in zip(reads, want)):
+        raise ValueError(f"permute_sorted: depth_key (float32), gc_sent and the sort's "
+                         f"values and indices (int64) must be [{max_pairs}] on {dev}")
+    fslot = fslot.contiguous()
+    depth_key, gc_sent = keys.depth_key.contiguous(), keys.gc_sent.contiguous()
+    fields = torch.empty((NFIELD, max_pairs), dtype=torch.float32, device=dev)
+    s_tile, s_gc = (torch.empty(max_pairs, dtype=torch.int64, device=dev) for _ in range(2))
+    inv = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    load_library().launch(
+        "deblurgs_permute_sorted", ctable.data_ptr(), ctable.shape[0], fslot.data_ptr(),
+        depth_key.data_ptr(), gc_sent.data_ptr(), key.data_ptr(), order.data_ptr(),
+        fields.data_ptr(), s_tile.data_ptr(), s_gc.data_ptr(), inv.data_ptr(), max_pairs,
+        cfg.num_tiles, cfg.tiles_x, cfg.tile_w, cfg.tile_h, int(cfg.n_images > 1),
+        stream_ptr(dev))
+    profiling.count("kernel.K7")
+    return fields, s_tile, s_gc, inv
+
+
+def sort_slots(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys,
+               permute=None) -> Staged:
+    """Staging, second half (``pallas_blend.py:314-369``): stable (tile,
+    depth) sort of the slots by ``keys`` (K3's epilogue, or its plain
+    version :func:`slot_keys_ref` of ``fslot``, the slot-space rows that K3
+    broadcast) → the sorted pair list (``permute``: K7's
+    :func:`permute_sorted` unless given, e.g. its plain version
+    :func:`permute_sorted_ref`) → per-tile ranges. The sort's inverse
+    (``inv``) and ``c.seg`` go with the result for K4."""
+    permute = permute or permute_sorted
+    fields, s_tile, s_gc, inv = permute(cfg, fslot, c, keys, torch.sort(keys.key, stable=True))
+
+    tq = torch.arange(cfg.total_tiles, dtype=torch.int64, device=fslot.device)
     tile_start = binning_lib.searchsorted_right(s_tile, tq - 1)
     tile_stop = binning_lib.searchsorted_right(s_tile, tq)
     max_per_tile = torch.max(tile_stop - tile_start)
@@ -332,9 +399,10 @@ def sort_slots(cfg, fslot: torch.Tensor, c: Compact, keys: SlotKeys) -> Staged:
 def sort_stage(cfg, means2d, conic, opacity, color, depth, rect, area,
                max_pairs: int) -> Staged:
     """Expansion → segmented broadcast, tile ids, tile cull and sort keys
-    (K3 and its key epilogue) → stable (tile, depth) sort → per-tile
-    ranges (``pallas_blend.py:278-369``). Lockstep composites one view:
-    stacked views are refused as in JAX (``pallas_blend.py:393-395``)."""
+    (K3 and its key epilogue) → stable (tile, depth) sort → the sorted pair
+    list (K7) → per-tile ranges (``pallas_blend.py:278-369``). Lockstep
+    composites one view: stacked views are refused as in JAX
+    (``pallas_blend.py:393-395``)."""
     if cfg.layout == "lockstep" and cfg.n_images > 1:
         raise NotImplementedError("batched multi-view rendering requires layout='mixed'")
     with profiling.span("render.staging"):

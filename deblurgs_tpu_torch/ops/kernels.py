@@ -28,7 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu")
+SOURCES = ("broadcast_fields.cu", "forward_mixed.cu", "backward_mixed.cu", "reduce_sorted.cu",
+           "permute_sorted.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "deblurgs_backward_mixed": [_vp, _i64, _vp, _vp] + [_i32] * 9 + [_vp] * 6
                                + [_f32, _vp, _vp],
     "deblurgs_reduce_sorted": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
+    "deblurgs_permute_sorted": [_vp, _i64] + [_vp] * 9 + [_i64] + [_i32] * 5 + [_vp],
 }
 
 

@@ -12,7 +12,7 @@ trace's device time put down to its spans (counterpart of
   (:func:`put_down`, :func:`by_span`).
 - :func:`count` adds to a counter of a plain dict of integers
   (:func:`counters`), always on: host-side adds of host values only. The
-  kernel wrappers count their launches as ``kernel.K1`` … ``kernel.K6``;
+  kernel wrappers count their launches as ``kernel.K1`` … ``kernel.K7``;
   the staging counts the slots it sorts (``staging.slots``) and the
   training loop's drain the pairs the steps emitted
   (``staging.pairs_emitted``), of the same stagings: with sub-frame groups

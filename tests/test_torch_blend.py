@@ -193,6 +193,41 @@ def test_slot_keys_match_jax(monkeypatch, n_images, need_n_contrib, max_pairs):
         assert (np.signbit(depth) & (depth == 0)).any()
 
 
+@pytest.mark.parametrize("n_images,max_pairs", [(1, MAX_PAIRS), (3, MAX_PAIRS), (3, 256)],
+                         ids=["F1", "F3", "F3-overflow"])
+def test_permute_plain_holds_what_k7_relies_on(n_images, max_pairs):
+    """K7's plain version (``permute_sorted_ref``) against the rules K7
+    computes by: the sorted tile id is the sorted key's high half; rows
+    11-12 are the per-image tile's origin, the sentinel rows' from the
+    modulo for stacked views only (0, 0), and (0, tiles_y · tile_h) for one
+    view; a -0.0 depth stays -0.0; the rank and inverse follow the sort."""
+    _, tcfg = _blend_configs(n_images, False, max_pairs=max_pairs)
+    c = cuda_blend.compact_table(tcfg, *to_torch(*_edge_preprocessed(n_images)), max_pairs)
+    fslot, keys = cuda_blend.broadcast_keys(tcfg, c)       # the CPU path: slot_keys_ref
+    srt = torch.sort(keys.key, stable=True)
+    fields, s_tile, s_gc, inv = cuda_blend.permute_sorted_ref(tcfg, fslot, c, keys, srt)
+    order = srt.indices
+    assert torch.equal(s_tile, srt.values >> 32)
+    assert torch.equal(fields[10], s_tile.float())
+    kept = s_tile < tcfg.total_tiles
+    assert 0 < int(kept.sum()) < max_pairs
+    tx0, ty0 = fields[11].long(), fields[12].long()
+    view = s_tile[kept] // tcfg.num_tiles
+    assert torch.equal(view * tcfg.num_tiles + ty0[kept] // tcfg.tile_h * tcfg.tiles_x
+                       + tx0[kept] // tcfg.tile_w, s_tile[kept])
+    assert bool((tx0[kept] < tcfg.width).all()) and bool((ty0[kept] < tcfg.height).all())
+    assert bool((view > 0).any()) == (n_images > 1 and max_pairs == MAX_PAIRS)
+    assert bool((tx0[~kept] == 0).all())
+    assert bool((ty0[~kept] == (tcfg.tiles_y * tcfg.tile_h if n_images == 1 else 0)).all())
+    depth = fields[9]
+    np.testing.assert_array_equal(np_of(depth.view(torch.int32)),
+                                  np_of(keys.depth_key[order].view(torch.int32)))
+    assert bool((kept & (depth == 0) & torch.signbit(depth)).any())
+    assert torch.equal(s_gc, keys.gc_sent[order])
+    assert torch.equal(inv[order], torch.arange(max_pairs, dtype=torch.int32))
+    assert bool((fields[13:] == 0).all())
+
+
 def test_depth_order_key():
     """The packed sort key orders f32 depths like the floats themselves,
     with the 3e37 sentinel last."""

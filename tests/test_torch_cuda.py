@@ -160,12 +160,23 @@ def _edge_rows(flat):
     return flat, rows
 
 
+def _assert_staged_plain(staged, cfg, fslot, c, want):
+    """Every output of a staging bit for bit against ``sort_slots`` on the
+    plain keys ``want`` with K7's plain version; returns the plain list."""
+    plain = cuda_blend.sort_slots(cfg, fslot, c, want, permute=cuda_blend.permute_sorted_ref)
+    for name in cuda_blend.Staged._fields:
+        if getattr(plain, name) is not None:
+            _assert_same_bits(getattr(staged, name), getattr(plain, name), name)
+    return plain
+
+
 def _check_slot_keys(card, cfg, flat):
     """K3's key epilogue bit for bit against ``slot_keys_ref`` on K3's own
-    rows, and ``sort_stage`` (which launches it) bit for bit against
-    ``sort_slots``' plain path; both launches counted."""
+    rows, and ``sort_stage`` (which launches it and K7) bit for bit against
+    the plain path (``slot_keys_ref``, ``permute_sorted_ref``); every
+    launch counted."""
     c = cuda_blend.compact_table(cfg, *flat, cfg.max_pairs)
-    before = launches("K3"), launches("K3.keys")
+    before = launches("K3"), launches("K3.keys"), launches("K7")
     fslot, keys = cuda_blend.broadcast_keys(cfg, c)
     assert (launches("K3"), launches("K3.keys")) == (before[0] + 1, before[1] + 1)
     _assert_same_bits(fslot, cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c), "K3 rows")
@@ -174,11 +185,8 @@ def _check_slot_keys(card, cfg, flat):
         _assert_same_bits(got, ref, name)
     del keys
     staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
-    assert launches("K3.keys") == before[1] + 2
-    plain = cuda_blend.sort_slots(cfg, fslot, c, want)
-    for name in cuda_blend.Staged._fields:
-        if getattr(plain, name) is not None:
-            _assert_same_bits(getattr(staged, name), getattr(plain, name), name)
+    assert (launches("K3.keys"), launches("K7")) == (before[1] + 2, before[2] + 1)
+    _assert_staged_plain(staged, cfg, fslot, c, want)
     return c, want
 
 
@@ -223,6 +231,67 @@ def test_slot_keys_kernel_at_the_train_budget(card):
     flat, _ = _edge_rows(flat)
     c, want = _check_slot_keys(card, cfg, flat)
     assert 0 < int((want.tile < cfg.total_tiles).sum()) < int(c.total) <= cfg.max_pairs
+
+
+# (name, n_images, need_n_contrib, max_pairs): stacked views and one view,
+# cull on and off, a budget the scene overflows, one not a multiple of four
+# (K7's scalar path), no pair emitted, every pair culled
+PERMUTE_CASES = [("F21", 21, False, 1 << 18), ("F21-overflow-cull_off", 21, True, 1 << 16),
+                 ("F1", 1, False, 1 << 14), ("F1-cull_off-odd", 1, True, 10001),
+                 ("none_emitted", 3, False, 1 << 12), ("all_culled", 3, False, 1 << 15)]
+
+
+@pytest.mark.parametrize("name,n_images,need_n_contrib,max_pairs", PERMUTE_CASES,
+                         ids=[case[0] for case in PERMUTE_CASES])
+def test_permute_kernel_matches_plain(card, name, n_images, need_n_contrib, max_pairs):
+    """K7 bit for bit against ``permute_sorted_ref`` on the same sort, and
+    the staging that launches it (once) against the plain path on every
+    ``Staged`` field, with a NaN row (mean, conic and colour), -0.0 and
+    negative depths among the rows; the case holds what it names."""
+    cfg, flat = _staged_inputs(card, need_n_contrib=need_n_contrib, max_pairs=max_pairs,
+                               n_sub=21 if n_images == 21 else F)
+    if name == "all_culled":
+        flat[2] = flat[2] * 1e-4          # alpha below 1/255 over every tile box
+    else:
+        flat, rows = _edge_rows(flat)
+        nan_row = torch.nonzero(flat[6] > 0).flatten()[17]
+        flat[0], flat[3] = flat[0].clone(), flat[3].clone()
+        flat[0][nan_row] = flat[3][nan_row] = float("nan")
+    if name == "none_emitted":
+        flat[6] = torch.zeros_like(flat[6])
+    if n_images == 1:
+        flat = [x[:x.shape[0] // F] for x in flat]
+        cfg = dataclasses.replace(cfg, n_images=1)
+    c = cuda_blend.compact_table(cfg, *flat, cfg.max_pairs)
+    fslot, keys = cuda_blend.broadcast_keys(cfg, c)
+    srt = torch.sort(keys.key, stable=True)
+    before = launches("K7")
+    got = cuda_blend.permute_sorted(cfg, fslot, c, keys, srt)
+    assert launches("K7") == before + 1
+    want = cuda_blend.permute_sorted_ref(cfg, fslot, c, keys, srt)
+    for what, g, w in zip(("fields", "s_tile", "s_gc", "inv"), got, want):
+        _assert_same_bits(g, w, what)
+    staged = cuda_blend.sort_stage(cfg, *flat, cfg.max_pairs)
+    assert launches("K7") == before + 2
+    _assert_staged_plain(staged, cfg, fslot, c, cuda_blend.slot_keys_ref(cfg, fslot, c))
+
+    # the case holds what it names
+    fields, s_tile = got[0], got[1]
+    total, kept = int(c.total), int((s_tile < cfg.total_tiles).sum())
+    assert (total > max_pairs) == ("overflow" in name)
+    assert (total == 0) == (name == "none_emitted")
+    assert (kept == 0) == (name in ("none_emitted", "all_culled"))
+    assert (kept == min(total, max_pairs)) == need_n_contrib or kept == 0
+    assert bool((s_tile[kept:] == cfg.total_tiles).all())
+    if n_images == 1:      # a single view's sentinel rows keep ty0 = tiles_y · tile_h
+        assert bool((fields[12, kept:] == cfg.tiles_y * cfg.tile_h).all())
+    elif kept:
+        assert bool((s_tile[:kept] >= cfg.num_tiles).any())
+        assert bool((fields[11:13, kept:] == 0).all())
+    if kept and "overflow" not in name:
+        depth = fields[9, :kept]
+        assert bool(((depth == 0) & torch.signbit(depth)).any())
+        assert bool(torch.isnan(fields[0, :kept]).any()) == need_n_contrib
 
 
 K1_TILES = [(32, 32), (16, 16), (8, 8), (16, 8), (40, 20)]
@@ -279,7 +348,8 @@ def test_blend_kernel_path_matches_plain_path(card):
     img, dep, final_t, _, total, _ = tile_blend.blend_fused(cfg, *flat, bg)
     c = cuda_blend.compact_table(cfg, *flat, cfg.max_pairs)
     fslot = cuda_blend.broadcast_fields_ref(c.ctable, c.gauss_c)
-    st = cuda_blend.sort_slots(cfg, fslot, c, cuda_blend.slot_keys_ref(cfg, fslot, c))
+    st = cuda_blend.sort_slots(cfg, fslot, c, cuda_blend.slot_keys_ref(cfg, fslot, c),
+                               permute=cuda_blend.permute_sorted_ref)
     plain = tile_blend.compose(cfg, *cuda_blend_mixed.forward_ref(
         cfg, st.fields, st.tile_start, st.tile_stop), bg)
     torch.testing.assert_close(img, plain[0], atol=1e-5, rtol=0)
@@ -300,6 +370,19 @@ def test_wrappers_check_their_inputs(card):
         cuda_blend.broadcast_keys(cfg, c._replace(ctable=c.ctable[:, :8]))
     with pytest.raises(ValueError):
         cuda_blend.broadcast_keys(cfg, c._replace(local=c.local.to(torch.int32)))
+    fslot, keys = cuda_blend.broadcast_keys(cfg, c)
+    srt = torch.sort(keys.key, stable=True)
+    cuda_blend.permute_sorted(cfg, fslot, c, keys, srt)
+    with pytest.raises(ValueError):
+        cuda_blend.permute_sorted(cfg, fslot[:8], c, keys, srt)
+    with pytest.raises(ValueError):
+        cuda_blend.permute_sorted(cfg, fslot, c._replace(ctable=c.ctable.double()), keys, srt)
+    with pytest.raises(ValueError):
+        cuda_blend.permute_sorted(cfg, fslot, c, keys._replace(gc_sent=keys.gc_sent.int()),
+                                  srt)
+    with pytest.raises(ValueError):
+        cuda_blend.permute_sorted(cfg, fslot, c, keys,
+                                  torch.return_types.sort((srt.values, srt.indices[:4])))
     staged = cuda_blend.Staged(*(torch.zeros(1, device=card) for _ in range(9)))
     with pytest.raises(ValueError):
         cuda_blend_mixed.forward_mixed(cfg, staged._replace(
